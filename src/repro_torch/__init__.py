@@ -1,0 +1,11 @@
+"""SpotVista in PyTorch for one NVIDIA H100: the port of ``repro``.
+
+The package mirrors ``repro``'s layout and public names.  It imports torch
+and numpy, never jax and nothing of ``repro``.  The serving main path —
+``serve.BatchServer`` -> ``core.RecommendationEngine.recommend_batch`` —
+runs on the card through two hand-written CUDA kernels,
+``kernels.score_fuse`` (Eq. 2-4) and ``kernels.pool_scan`` (Algorithm 1),
+built from ``csrc/`` on first use.  Entry points run on CUDA unless the
+caller passes ``device="cpu"``, which takes the kernels' plain PyTorch
+versions.
+"""
