@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving main path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and live-ingest paths on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -23,7 +23,19 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    bit-identical, and pools identical except where the decision-margin
    replay puts a decision within float32 rounding of the two devices'
    prefix sums (a tie, counted and printed).
-4. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+4. Live-ingest path (float32, then int8): a seeded synthetic feed over the
+   same K = 32768 catalog primes a rolling archive of capacity 1008 with 504
+   columns through ``EngineConfig.build_ingestor``, then absorbs 1512 ticks
+   (504 growing, 1008 sliding: one wrap; 600 on int8) through
+   ``LiveIngestor.poll``, kernel B3 ``stats_update`` once per tick, with the
+   launch counters reset just before and read just after.  Every tick is
+   replayed through B3's plain version on the same inputs (bit-identical
+   moments and statistics required).  At three versions 16 mixed requests
+   are served through ``AdmissionQueue`` drains and compared with a CPU run
+   on the snapshot's statistics as in phase 3; the final statistics are held
+   against ``candidate_stats`` of the window at RTOL 1e-5 / ATOL 1e-4 and
+   the window against the feed.  Prints append latency and B3's times.
+5. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without printing a result when CUDA is unavailable or when
 the ``src/repro_torch`` package is not beside this script.
@@ -47,6 +59,17 @@ N_CALLS = 3            # serve() calls of B_FULL requests on the main path
 BUCKETS = (1, 8, 16, 64, 256)   # the default ladder plus 16: one batch a call
 TIME_REPS = 50
 LATENCY_CALLS = 100    # serve() calls timed for p50 / p90 (10 samples above)
+
+# live-ingest phase: a ring of one week of 10-minute samples, primed with
+# half of it, then one full wrap (504 growing ticks, 1008 sliding ones)
+INGEST_WINDOW = 1008
+INGEST_PRIME = 504
+INGEST_TICKS = {"float32": 1512, "int8": 600}
+INGEST_SERVE_AT = {"float32": (504, 1008, 1512), "int8": (600,)}
+# float operations of one candidate's tick in kernel B3: ten compensated
+# adds of 4, the update's 7 products and differences, the derivation's 21
+# (4 more decodes on the int8 tier)
+B3_FLOPS = 68
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
 # rate outside the tensor cores.
@@ -247,38 +270,9 @@ def kernel_phase(torch, cands, archive):
     return timings
 
 
-def main_path(torch, cands):
-    """3 x 16 mixed requests through BatchServer.serve on the card, then on
-    the CPU with the card's statistics; returns the counters and report."""
-    from repro_torch import convert
-    from repro_torch.core import pool as pool_lib
-    from repro_torch.core.types import RequestBatch
-    from repro_torch.kernels import pool_scan as ps
-    from repro_torch.kernels import score_fuse as sf
-    from repro_torch.serve import BatchServer
-
-    rng = np.random.default_rng(2)
-    calls = [mixed_requests(rng, B_FULL) for _ in range(N_CALLS)]
-    server = BatchServer(device=DEVICE, bucket_sizes=BUCKETS)
-    archive = server.cache.get(cands)
-    archive.score_stats()
-    torch.cuda.synchronize()
-
-    sf.score_fuse_batch.launches = 0
-    ps.pool_scan.launches = 0
-    served, serve_ms = [], []
-    for reqs in calls:
-        t0 = time.perf_counter()
-        served.append(server.serve(archive, reqs))
-        serve_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = {"score_fuse": sf.score_fuse_batch.launches,
-                "pool_scan": ps.pool_scan.launches}
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"the main path never launched kernel {name}")
-
-    # Algorithm 1's own invariants: a non-empty pool of positive counts,
-    # inside the request's filters, whose capacity covers the request.
+def check_pools(cands, calls, served, label: str) -> None:
+    """Algorithm 1's own invariants: a non-empty pool of positive counts,
+    inside the request's filters, whose capacity covers the request."""
     row_of = {name: i for i, name in enumerate(cands.names)}
     for reqs, recs in zip(calls, served):
         for req, rec in zip(reqs, recs):
@@ -289,7 +283,18 @@ def main_path(torch, cands):
                     and np.isfinite(rec.combined).all()
                     and np.isfinite(rec.hourly_cost)
                     and (rec.counts * cap).sum() >= req.amount):
-                fail(f"main path: malformed pool for {req}")
+                fail(f"{label}: malformed pool for {req}")
+
+
+def compare_with_cpu(torch, server, archive, cands, calls, served, label):
+    """Serve ``calls`` again on the CPU, on an archive holding the card
+    archive's statistics: score rows must be bit-identical, and pools
+    identical except where ``prefix_sum_tie`` flags a tie (counted)."""
+    from repro_torch import convert
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.core.types import RequestBatch
+    from repro_torch.kernels import pool_scan as ps
+    from repro_torch.serve import BatchServer
 
     stats_host = [x.cpu().numpy() for x in archive.score_stats()]
     cpu_archive = convert.archive_from_numpy(cands, stats_host, device="cpu")
@@ -304,7 +309,7 @@ def main_path(torch, cands):
         cpu = cpu_server.engine.batch_arrays(cands, batch, archive=cpu_archive)
         for name, a, b in zip(("comb", "avail", "cost"), gpu[:3], cpu[:3]):
             if not same_bits(a[batch.masks], b[batch.masks]):
-                fail(f"main path: {name} rows differ between card and CPU")
+                fail(f"{label}: {name} rows differ between card and CPU")
         comb = torch.as_tensor(cpu[0])
         caps_all = torch.where(torch.as_tensor(batch.use_cpus)[:, None],
                                cpu_archive.vcpus, cpu_archive.memory_gb)
@@ -330,12 +335,259 @@ def main_path(torch, cands):
             if not (same_scan and same_pool):
                 mismatched += 1
                 if not tie:
-                    fail(f"main path: pool of {req} differs between card and "
+                    fail(f"{label}: pool of {req} differs between card and "
                          f"CPU with margin {margin:.3g} > budget {budget:.3g}")
+    return dict(ties=int(ties), tie_mismatches=int(mismatched),
+                prefix_sum_rows_differ=csc_rows_differ,
+                prefix_sum_max_rel_diff=csc_max_rel)
+
+
+def main_path(torch, cands):
+    """3 x 16 mixed requests through BatchServer.serve on the card, then on
+    the CPU with the card's statistics; returns the counters and report."""
+    from repro_torch.kernels import pool_scan as ps
+    from repro_torch.kernels import score_fuse as sf
+    from repro_torch.serve import BatchServer
+
+    rng = np.random.default_rng(2)
+    calls = [mixed_requests(rng, B_FULL) for _ in range(N_CALLS)]
+    server = BatchServer(device=DEVICE, bucket_sizes=BUCKETS)
+    archive = server.cache.get(cands)
+    archive.score_stats()
+    torch.cuda.synchronize()
+
+    sf.score_fuse_batch.launches = 0
+    ps.pool_scan.launches = 0
+    served, serve_ms = [], []
+    for reqs in calls:
+        t0 = time.perf_counter()
+        served.append(server.serve(archive, reqs))
+        serve_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {"score_fuse": sf.score_fuse_batch.launches,
+                "pool_scan": ps.pool_scan.launches}
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"the main path never launched kernel {name}")
+
+    check_pools(cands, calls, served, "main path")
+    report = compare_with_cpu(torch, server, archive, cands, calls, served,
+                              "main path")
     return launches, dict(serve_ms=serve_ms, requests=N_CALLS * B_FULL,
-                          ties=int(ties), tie_mismatches=int(mismatched),
-                          prefix_sum_rows_differ=csc_rows_differ,
-                          prefix_sum_max_rel_diff=csc_max_rel)
+                          **report)
+
+
+class SyntheticFeed:
+    """A seeded live collector over a fixed catalog: tick ``i`` is the (K,)
+    column ``uniform(0, 50)`` drawn from ``(seed, i)``.  Has what the
+    ingestor reads of a collector: ``ticks``, ``column(i)`` and
+    ``to_candidate_set(window=)``.  :meth:`run` draws the next tick's column
+    ahead, so an ingest reads it from memory as from a collector's ring."""
+
+    def __init__(self, catalog, seed: int, ticks: int):
+        self.catalog = catalog
+        self.seed = seed
+        self.ticks = ticks
+        self._ahead = None
+
+    def _draw(self, i: int) -> np.ndarray:
+        rng = np.random.default_rng((self.seed, i))
+        return rng.uniform(0.0, 50.0, len(self.catalog))
+
+    def column(self, i: int) -> np.ndarray:
+        if not 0 <= i < self.ticks:
+            raise IndexError(f"tick {i} not collected yet")
+        if self._ahead is not None and self._ahead[0] == i:
+            return self._ahead[1]
+        return self._draw(i)
+
+    def window(self, n: int) -> np.ndarray:
+        """The (K, n) window of the last ``n`` ticks, oldest first."""
+        return np.stack([self.column(i)
+                         for i in range(self.ticks - n, self.ticks)], axis=1)
+
+    def to_candidate_set(self, window: int | None = None):
+        from dataclasses import replace
+        n = min(window or self.ticks, self.ticks)
+        return replace(self.catalog, t3=self.window(n))
+
+    def run(self, n: int = 1) -> None:
+        self.ticks += n
+        self._ahead = (self.ticks - 1, self._draw(self.ticks - 1))
+
+
+def ingest_phase(torch, catalog, precision: str):
+    """The live-ingest path at full width: prime a rolling archive of K
+    candidates, absorb ``INGEST_TICKS[precision]`` ticks through
+    ``LiveIngestor.poll`` (kernel B3 once per tick) and serve 16 mixed
+    requests through ``AdmissionQueue`` drains at ``INGEST_SERVE_AT``.
+
+    Every tick is replayed through B3's plain version on the same inputs
+    (bit-identical moments and statistics required); the final statistics
+    are held against ``candidate_stats`` of the materialized window, the
+    window against the feed, and the served pools against a CPU run on the
+    snapshots' statistics."""
+    from repro_torch.core import scoring
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.kernels import pool_scan as ps
+    from repro_torch.kernels import score_fuse as sf
+    from repro_torch.kernels import stats_update as su
+    from repro_torch.parallel import compression
+    from repro_torch.stream import AdmissionQueue
+
+    n_ticks = INGEST_TICKS[precision]
+    label = f"ingest {precision}"
+    quantized = precision == "int8"
+    feed = SyntheticFeed(catalog, seed=5, ticks=INGEST_PRIME)
+    cfg = EngineConfig(archive_precision=precision)
+    server = cfg.build_server(device=DEVICE, bucket_sizes=BUCKETS)
+    rng = np.random.default_rng(4)
+    calls, served, snaps, append_ms = [], [], [], []
+    max_err = 0.0
+
+    su.stats_update.launches = 0
+    sf.score_fuse_batch.launches = 0
+    ps.pool_scan.launches = 0
+    t0 = time.perf_counter()
+    ing = cfg.build_ingestor(feed, window=INGEST_WINDOW, name="live",
+                             device=DEVICE)
+    arch = ing.prime()
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    queue = AdmissionQueue(server, lambda: ing.archive, max_wait_s=0.0)
+    for tick in range(1, n_ticks + 1):
+        feed.run(1)
+        slot, prev = arch._pos, arch._moments
+        y_old = arch._buf[slot].clone()
+        evict = arch.window_len == arch.capacity
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ing.poll()
+        torch.cuda.synchronize()
+        append_ms.append((time.perf_counter() - t0) * 1e3)
+        # the same tick through B3's plain version, on the same inputs
+        y_new = arch._buf[slot]
+        pm, pst = su.stats_update(
+            prev, y_new, y_old, arch._buf[arch._start], y_new,
+            arch.window_len, evict, scale=arch.scale if quantized else None,
+            backend="torch")
+        for a, b in zip((*arch._moments, *arch.score_stats()), (*pm, *pst)):
+            if not same_bits(a, b):
+                fail(f"{label}: B3 differs from its plain version at tick "
+                     f"{tick}")
+            max_err = max(max_err, float((a - b).abs().nan_to_num(0.0).max()))
+        if tick in INGEST_SERVE_AT[precision]:
+            reqs = mixed_requests(rng, B_FULL)
+            tickets = [queue.submit(r) for r in reqs]
+            queue.drain(force=True)
+            recs = [t.result() for t in tickets]
+            if any(r.diagnostics["archive_version"] != arch.version
+                   for r in recs):
+                fail(f"{label}: a drain served another version")
+            calls.append(reqs)
+            served.append(recs)
+            snaps.append(arch.snapshot())
+    launches = {"stats_update": su.stats_update.launches,
+                "score_fuse": sf.score_fuse_batch.launches,
+                "pool_scan": ps.pool_scan.launches}
+    if launches["stats_update"] != n_ticks:
+        fail(f"{label}: B3 launched {launches['stats_update']} times over "
+             f"{n_ticks} ticks, not once per tick")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"{label}: the ingest path never launched kernel {name}")
+
+    # the stored window against the feed, the statistics against a recompute
+    host = feed.window(arch.window_len)
+    if quantized:
+        codes = compression.quantize_window(host, arch.scale.cpu().numpy(),
+                                            precision)
+        host = compression.dequantize_window(codes, arch.scale.cpu(),
+                                             precision).numpy()
+    if not np.array_equal(arch.materialize(), host.astype(np.float32)):
+        fail(f"{label}: the ring's window differs from the feed's")
+    want = scoring.candidate_stats(arch.t3)
+    for name, a, b in zip(("area", "slope", "std"), arch.score_stats(), want):
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-4):
+            fail(f"{label}: streamed {name} is off a recompute of the window")
+    recompute = {name: float((a - b).abs().max()) for name, a, b in
+                 zip(("area", "slope", "std"), arch.score_stats(), want)}
+
+    serve = []
+    for reqs, recs, snap in zip(calls, served, snaps):
+        check_pools(snap.host, [reqs], [recs], f"{label} v{snap.version}")
+        serve.append(dict(version=snap.version, **compare_with_cpu(
+            torch, server, snap, snap.host, [reqs], [recs],
+            f"{label} v{snap.version}")))
+
+    profile = profile_ingest(torch, ing, feed)
+
+    # B3 alone at this shape: one sliding tick of the final state
+    K = len(arch)
+    y_new = arch._buf[(arch._pos - 1) % arch.capacity]
+    args = (arch._moments, y_new, arch._buf[arch._pos],
+            arch._buf[arch._start], y_new, arch.window_len, True)
+    kw = dict(scale=arch.scale if quantized else None)
+    call_ms, dev_ms = time_ms(lambda: su.stats_update(*args, **kw),
+                              ("stats_update_kernel",))
+    plain_call_ms, plain_dev_ms = time_ms(
+        lambda: su.stats_update(*args, **kw, backend="torch"), None)
+    col_bytes = (1 if quantized else 4) * 4 * K
+    nbytes = 4 * 7 * K + col_bytes + (4 * K if quantized else 0) + 4 * 9 * K
+    nops = (B3_FLOPS + (4 if quantized else 0)) * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    b3 = dict(ms=dev_ms if dev_ms is not None else call_ms,
+              ms_source="profiler" if dev_ms is not None else "events",
+              call_ms=call_ms,
+              plain_ms=plain_dev_ms if plain_dev_ms is not None
+              else plain_call_ms,
+              plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
+              bound_by="bytes" if t_bytes >= t_ops else "operations",
+              bytes=nbytes, ops=nops, max_abs_err=max_err)
+    report = dict(
+        K=K, capacity=INGEST_WINDOW, prime_columns=INGEST_PRIME,
+        ticks=n_ticks, grow_ticks=INGEST_WINDOW - INGEST_PRIME,
+        slide_ticks=n_ticks - (INGEST_WINDOW - INGEST_PRIME),
+        prime_s=prime_s,
+        append_ms={"p50": float(np.percentile(append_ms, 50)),
+                   "p90": float(np.percentile(append_ms, 90)),
+                   "max": float(np.max(append_ms))},
+        b3_launches_per_tick=launches["stats_update"] / n_ticks,
+        launches=launches, clipped_samples=arch.clipped_samples,
+        recompute_max_abs_err=recompute, serve=serve, b3=b3,
+        profile=profile)
+    return launches, report
+
+
+def profile_ingest(torch, ing, feed, n: int = 50):
+    """``n`` more ticks under ``torch.profiler``: per poll, the wall time,
+    the device's busy time and idle share, and the largest host and device
+    items (self time, per poll)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            feed.run(1)
+            ing.poll()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    host, dev = [], []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            dev.append((dev_us / 1e3 / n, evt.key[:60]))
+        if evt.self_cpu_time_total > 0:
+            host.append((evt.self_cpu_time_total / 1e3 / n, evt.key[:60]))
+    dev.sort(reverse=True)
+    host.sort(reverse=True)
+    busy = sum(ms for ms, _ in dev)
+    return dict(polls=n, wall_ms_per_poll=wall_ms, device_busy_ms_per_poll=busy,
+                idle_share=1 - busy / wall_ms if wall_ms > 0 else None,
+                device_top=[[round(ms, 5), k] for ms, k in dev[:6]],
+                host_top=[[round(ms, 5), k] for ms, k in host[:10]])
 
 
 def profile_serve(torch, cands):
@@ -408,10 +660,10 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build("score_fuse", "pool_scan")
-    print(f"built score_fuse.cu + pool_scan.cu in "
+    _build.build("score_fuse", "pool_scan", "stats_update")
+    print(f"built score_fuse.cu + pool_scan.cu + stats_update.cu in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("score_fuse", "pool_scan"):
+    for name in ("score_fuse", "pool_scan", "stats_update"):
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
@@ -428,11 +680,22 @@ def main() -> None:
     launches, report = main_path(torch, cands)
     print("main path: " + json.dumps(report))
     print("serve profile: " + json.dumps(profile_serve(torch, cands)))
+    del archive
+    for precision in ("float32", "int8"):
+        t0 = time.perf_counter()
+        ingest_launches, ingest = ingest_phase(torch, cands, precision)
+        ingest["phase_s"] = time.perf_counter() - t0
+        print(f"ingest {precision}: " + json.dumps(ingest))
+        if precision == "float32":
+            launches["stats_update"] = ingest_launches["stats_update"]
+            timings["stats_update"] = ingest["b3"]
 
     meta = {"score_fuse": ("cuda", "src/repro_torch/csrc/score_fuse.cu",
                            "src/repro/kernels/score_fuse.py:189"),
             "pool_scan": ("cuda", "src/repro_torch/csrc/pool_scan.cu",
-                          "src/repro/kernels/pool_scan.py:155")}
+                          "src/repro/kernels/pool_scan.py:155"),
+            "stats_update": ("cuda", "src/repro_torch/csrc/stats_update.cu",
+                             "src/repro/kernels/stats_update.py:203")}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         t = timings[name]

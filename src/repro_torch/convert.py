@@ -33,6 +33,15 @@ def candidate_set_from_numpy(**arrays) -> CandidateSet:
     return CandidateSet(**{k: np.array(arrays[k]) for k in _FIELDS})
 
 
+def as_candidate_set(cands) -> CandidateSet:
+    """``cands`` as the port's :class:`CandidateSet`: returned as it is when
+    it already is one, else its nine fields copied (a collector of the
+    reference's simulator hands out the reference's type)."""
+    if isinstance(cands, CandidateSet):
+        return cands
+    return candidate_set_from_numpy(**{k: getattr(cands, k) for k in _FIELDS})
+
+
 def archive_from_numpy(cands: CandidateSet, stats=None, *, device=None,
                        key: str | None = None) -> DeviceArchive:
     """Stage ``cands`` on ``device`` with the given memoised statistics.

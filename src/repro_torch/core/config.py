@@ -43,12 +43,12 @@ class EngineConfig:
     cache_max_bytes : int | None
         Optional device-byte budget for the same LRU (``None`` = uncapped).
     archive_precision : str
-        Storage tier of staged T3 windows.  Only ``"float32"`` stages in
-        this slice; ``"bfloat16"`` / ``"int8"`` validate and raise
-        ``NotImplementedError`` when an archive is staged.
+        Storage tier of staged T3 windows.  Rolling archives
+        (``build_ingestor``) stage all three tiers; a static
+        ``DeviceArchive`` stages ``"float32"`` only, and raises
+        ``NotImplementedError`` for ``"bfloat16"`` / ``"int8"``.
     archive_headroom : float
-        int8 clip slack of the quantized tier (``>= 1.0``), validated and
-        kept for that tier.
+        int8 clip slack of the quantized tier (``>= 1.0``).
 
     Frozen, so a config can be shared across threads and layers; derive
     variants with :meth:`with_`.
@@ -105,10 +105,19 @@ class EngineConfig:
         return BatchServer(config=self, **kw)
 
     def build_ingestor(self, collector, *, window: int, **kw):
-        """Live ingestion is the second slice of the port."""
-        raise NotImplementedError(
-            "live ingestion (LiveIngestor) is not ported yet: it arrives "
-            "with slice 2 of the port, together with the stats_update kernel")
+        """A :class:`~repro_torch.stream.LiveIngestor` on this config.
+
+        The ingestor derives its archive cache and the ring's storage tier
+        (``archive_precision`` / ``archive_headroom``) from this config;
+        extra keyword arguments (``name``, ``device``, or an explicit shared
+        ``cache``) pass through.
+        """
+        from ..stream.ingest import LiveIngestor
+        if "cache" in kw:
+            return LiveIngestor(collector, window=window,
+                                precision=self.archive_precision,
+                                headroom=self.archive_headroom, **kw)
+        return LiveIngestor(collector, window=window, config=self, **kw)
 
 
 def resolve_engine_config(config: EngineConfig | None,

@@ -210,21 +210,29 @@ class RecommendationEngine:
         K = len(cands)
         impl = pool_lib.resolve_pool_impl(self.pool_impl, K)
         s_impl = scoring.resolve_score_impl(self.score_impl, K)
-        if archive is not None:
-            dev = archive.device
-            t3, prices, vcpus, memory_gb = (archive.t3, archive.prices,
-                                            archive.vcpus, archive.memory_gb)
-        else:
-            dev = self.device
-            t3, prices, vcpus, memory_gb = (
-                f32(x, dev) for x in (cands.t3, cands.prices, cands.vcpus,
-                                      cands.memory_gb))
+        if (s_impl == "dense" and archive is not None
+                and not getattr(archive, "dense_capable", True)):
+            # version-pinned snapshots carry statistics but no window, so
+            # they feed the tiled stage whatever the auto threshold says
+            s_impl = "tiled"
+        dev = archive.device if archive is not None else self.device
         if s_impl == "tiled":
             stats = archive.score_stats() if archive is not None else None
             uniq_masks, uniq_inv = _dedup_masks(batch.masks)
             uniq_masks = torch.as_tensor(uniq_masks, device=dev)
         else:
             stats = uniq_masks = uniq_inv = None
+        if archive is not None:
+            # With cached statistics the scoring stage never reads t3, so it
+            # is not asked for: a rolling archive would gather its window,
+            # O(K*T), and a snapshot has none.
+            t3 = archive.t3 if stats is None else None
+            prices, vcpus, memory_gb = (archive.prices, archive.vcpus,
+                                        archive.memory_gb)
+        else:
+            t3, prices, vcpus, memory_gb = (
+                f32(x, dev) for x in (cands.t3, cands.prices, cands.vcpus,
+                                      cands.memory_gb))
         on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
         outs = _fused_recommend_batch(
             t3, prices, vcpus, memory_gb, on(batch.masks), on(batch.use_cpus),
@@ -249,8 +257,10 @@ class RecommendationEngine:
         ``solve_time_s`` in the diagnostics is the whole-batch wall time,
         stamped on every request.  ``pad_to`` pads the batch axis with inert
         rows that are computed and discarded.  ``archive`` is an optional
-        staged :class:`repro_torch.serve.DeviceArchive`: the batch runs on
-        its device, reads its resident arrays and its memoised statistics.
+        staged :class:`repro_torch.serve.DeviceArchive`, live
+        :class:`repro_torch.stream.RollingDeviceArchive` or its
+        :class:`~repro_torch.stream.ArchiveSnapshot`: the batch runs on its
+        device, reads its resident arrays and its memoised statistics.
         """
         requests = list(requests)
         if not requests:

@@ -142,6 +142,40 @@ def candidate_stats(t3) -> CandidateStats:
                           t3.std(-1, correction=0))
 
 
+def stats_from_moments(s0, s1, q, y_first, y_last, length,
+                       ref=0.0) -> CandidateStats:
+    """:class:`CandidateStats` from streaming moments of a window.
+
+    ``s0 = sum(y)``, ``s1 = sum(i * y)`` (``i`` the position inside the
+    window, oldest first), ``q = sum((y - ref)^2)`` over the current
+    ``length``-sample window whose first/last columns are ``y_first`` /
+    ``y_last``; ``ref`` the per-candidate frozen centring point of ``q``.
+    The O(K) tail of the live-ingest update (``kernels.stats_update``):
+
+    - area : ``s0 - (y_first + y_last) / 2``, or ``s0 / 2`` when T == 1;
+    - slope: ``(s1 - (T - 1) / 2 * s0) / (T (T^2 - 1) / 12)``, 0-guarded;
+    - std  : ``sqrt(max(q / T - (s0 / T - ref)^2, 0))``.
+
+    The reference's op order, one correctly rounded float32 result per op.
+    Every divisor is a float32 tensor on the operands' device (a CUDA
+    division by a Python scalar multiplies by its reciprocal), so the CUDA
+    kernel B3, built with ``--fmad=false``, gives the same bits on the card
+    and on the CPU.
+    """
+    dev = s0.device
+    T = f32(length, dev)
+    two, twelve = f32(2.0, dev), f32(12.0, dev)
+    area = torch.where(T > 1, s0 - 0.5 * (y_first + y_last), 0.5 * s0)
+    denom = T * (T * T - 1.0) / twelve
+    slope = (s1 - (T - 1.0) / two * s0) / torch.where(denom > 0, denom, 1.0)
+    d = s0 / T - ref
+    var = torch.clamp(q / T - d * d, min=0.0)
+    # PyTorch's vectorized float32 sqrt on the CPU is not always correctly
+    # rounded; the float64 root rounded to float32 is, as IEEE sqrtf is.
+    std = torch.sqrt(var.double()).float()
+    return CandidateStats(area, slope, std)
+
+
 def _availability(stats: CandidateStats, lam, norm) -> AvailabilityComponents:
     a3, slope, sigma = (norm(x) for x in stats)
     score = torch.clamp(100.0 * a3 * (1.0 + lam * (slope - sigma)), min=0.0)

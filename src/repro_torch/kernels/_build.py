@@ -93,17 +93,18 @@ def build(*names: str) -> dict[str, ctypes.CDLL]:
         return {n: _libs[n] for n in names}
 
 
-def library(name: str, signatures: dict[str, tuple[int, int]]) -> ctypes.CDLL:
+def library(name: str, signatures: dict[str, tuple[int, ...]]) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use.
 
-    ``signatures`` maps each C entry point to its count of pointer and int
-    arguments (the stream comes last); see :func:`declare`.
+    ``signatures`` maps each C entry point to its count of pointer, int and
+    (optionally) float arguments (the stream comes last); see
+    :func:`declare`.
     """
     lib = _libs.get(name)
     if lib is None:
         lib = build(name)[name]
-    for fn, (n_ptrs, n_ints) in signatures.items():
-        declare(getattr(lib, fn), n_ptrs, n_ints)
+    for fn, counts in signatures.items():
+        declare(getattr(lib, fn), *counts)
     return lib
 
 
@@ -151,9 +152,11 @@ def route(backend: str | None, device) -> str:
     raise ValueError(f"no kernel or plain version for device {device}")
 
 
-def declare(fn, n_ptrs: int, n_ints: int):
-    """Set a C entry point's signature: pointers, then ints, then stream."""
+def declare(fn, n_ptrs: int, n_ints: int, n_floats: int = 0):
+    """Set a C entry point's signature: pointers, then ints, then floats
+    (``float`` by value: a Python float is rounded to float32 once, as
+    ``np.float32`` rounds it), then the stream."""
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -45,13 +45,14 @@ class DeviceArchive:
         """Put a candidate set's numeric arrays on ``device``.
 
         ``device`` follows the port's policy: CUDA unless ``"cpu"`` is asked
-        for, and no fallback.  Only the float32 tier stages in this slice;
-        ``"bfloat16"`` / ``"int8"`` raise ``NotImplementedError``.
+        for, and no fallback.  Only the float32 tier stages here;
+        ``"bfloat16"`` / ``"int8"`` raise ``NotImplementedError`` (the
+        quantized tiers stage as rolling archives, ``repro_torch.stream``).
         """
         if compression.resolve_precision(precision) != "float32":
             raise NotImplementedError(
-                f"the {precision} archive tier is not ported yet: quantized "
-                "archives arrive with the live-ingest slice (slice 2)")
+                f"the {precision} tier of a static DeviceArchive is not "
+                "ported yet; RollingDeviceArchive stages every tier")
         dev = resolve_device(device)
         key = key if key is not None else cands.fingerprint()
         return cls(key=key, host=cands, t3=f32(cands.t3, dev),

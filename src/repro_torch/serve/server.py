@@ -16,10 +16,15 @@ from dataclasses import dataclass, field
 from ..core.config import EngineConfig, resolve_engine_config
 from ..core.engine import RecommendationEngine
 from ..core.types import CandidateSet, Recommendation
-from .archive import DeviceArchive
 from .histogram import LatencyHistogram
 
 DEFAULT_BUCKETS = (1, 8, 64, 256)
+
+
+def _is_archive(target) -> bool:
+    """Anything engine-ready: staged arrays with the host catalog attached."""
+    return hasattr(target, "host") and (hasattr(target, "score_stats")
+                                        or hasattr(target, "is_sharded"))
 
 
 @dataclass
@@ -114,23 +119,31 @@ class BatchServer:
 
         ``target`` is a host :class:`~repro_torch.core.CandidateSet` (staged
         through the LRU cache, keyed by content fingerprint or
-        ``archive_key``) or an already-staged :class:`DeviceArchive`.
+        ``archive_key``), an already-staged :class:`DeviceArchive`, or a
+        live :class:`~repro_torch.stream.RollingDeviceArchive` or its
+        :class:`~repro_torch.stream.ArchiveSnapshot`.  Staged archives are
+        served directly, bypassing the LRU: a rolling archive re-keys
+        itself every tick, and the ingestor manages its cache membership.
         """
         requests = list(requests)
         if not requests:
             return []
         if isinstance(target, CandidateSet):
             archive = self.cache.get(target, key=archive_key)
-        elif isinstance(target, DeviceArchive):
+        elif _is_archive(target):
+            if getattr(target, "is_sharded", False):
+                raise NotImplementedError(
+                    "K-sharded archives are not ported yet (a later slice)")
             if archive_key is not None:
                 raise ValueError(
                     "archive_key only applies when serving a CandidateSet; "
-                    "a DeviceArchive already carries its key")
+                    f"{type(target).__name__} already carries its key")
             archive = target
         else:
             raise TypeError(
-                "serve() target must be a CandidateSet or a DeviceArchive, "
-                f"got {type(target).__name__}")
+                "serve() target must be a CandidateSet or a staged archive "
+                "(DeviceArchive / rolling / snapshot), got "
+                f"{type(target).__name__}")
         t0 = time.perf_counter()
         out: list[Recommendation] = []
         pos = 0

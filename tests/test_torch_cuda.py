@@ -5,7 +5,7 @@ inside the fixture, never at import).  Run them on a GPU machine with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Both kernels are built with ``--fmad=false`` and keep the plain version's
+Every kernel is built with ``--fmad=false`` and keeps the plain version's
 op order, so every output must be bit-identical.
 """
 import numpy as np
@@ -19,7 +19,10 @@ from repro_torch.core.types import CandidateSet, RequestBatch, ResourceRequest
 from repro_torch.kernels import _build
 from repro_torch.kernels import pool_scan as tps
 from repro_torch.kernels import score_fuse as tsf
+from repro_torch.kernels import stats_update as tsu
+from repro_torch.parallel import compression as tcomp
 from repro_torch.serve import BatchServer, DeviceArchive
+from repro_torch.stream import RollingDeviceArchive
 
 pytestmark = pytest.mark.cuda
 
@@ -147,3 +150,55 @@ def test_main_path_matches_cpu_run(cuda):
         assert tpool.prefix_sum_tie(s[b].numpy(), c[b].numpy(),
                                     float(batch.amounts[b]), csc_cpu[b],
                                     csc_gpu[b], runs)[0], REQS[b]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_stats_update_kernel_matches_plain_version(cuda, quantized):
+    """B3 against its plain version on the card over a growing and a
+    sliding stream: moments and statistics bit-identical at every tick."""
+    rng = np.random.default_rng(7)
+    K, C = 3001, 64
+    series = rng.uniform(0.0, 50.0, (K, C + 200))
+    scale = None
+    if quantized:
+        scale_np = tcomp.candidate_scales(series, "int8")
+        series = tcomp.quantize_window(series, scale_np, "int8").numpy()
+        scale = torch.as_tensor(scale_np, device=cuda)
+    win = series[:, :8]
+    m = tsu.moments_from_window(win, scale=scale_np if quantized else None,
+                                device=cuda)
+    mk = mp = m
+    on = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)  # noqa: E731
+    for t in range(8, series.shape[1]):
+        col = series[:, t]
+        evict = win.shape[1] == C
+        y_old = win[:, 0] if evict else col
+        win = (np.concatenate([win[:, 1:], col[:, None]], axis=1) if evict
+               else np.concatenate([win, col[:, None]], axis=1))
+        args = (on(col), on(y_old), on(win[:, 0]), on(win[:, -1]),
+                win.shape[1], evict)
+        before = tsu.stats_update.launches
+        mk, sk = tsu.stats_update(mk, *args, scale=scale)
+        assert tsu.stats_update.launches == before + 1
+        mp, sp = tsu.stats_update(mp, *args, scale=scale, backend="torch")
+        for a, b in zip((*mk, *sk), (*mp, *sp)):
+            assert _same(a, b)
+
+
+def test_rolling_archive_on_the_card_matches_cpu(cuda):
+    """The int8 and float32 rings on the card against the same rings on the
+    CPU: stored windows, statistics and clip counts bit-identical."""
+    cands = _world(4000, T=48, seed=9)
+    rng = np.random.default_rng(9)
+    for precision in ("float32", "int8", "bfloat16"):
+        kw = dict(capacity=48, name="x", precision=precision)
+        gpu = RollingDeviceArchive(cands, device=cuda, **kw)
+        cpu = RollingDeviceArchive(cands, device="cpu", **kw)
+        for _ in range(60):
+            col = rng.uniform(0.0, 52.0, 4000)
+            gpu.append(col)
+            cpu.append(col)
+        np.testing.assert_array_equal(gpu.materialize(), cpu.materialize())
+        for a, b in zip(gpu.score_stats(), cpu.score_stats()):
+            assert _same(a.cpu(), b)
+        assert gpu.clipped_samples == cpu.clipped_samples

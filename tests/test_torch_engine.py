@@ -210,10 +210,11 @@ def test_archives_cache_and_config():
     cache.get(port, key="other")
     cache.get(port, key="third")
     assert cache.evictions == 1 and a.key not in cache
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         DeviceArchive.stage(port, device="cpu", precision="int8")
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        EngineConfig().build_ingestor(None, window=8)
+    ing = EngineConfig(archive_precision="int8").build_ingestor(
+        None, window=8, device="cpu")
+    assert ing.precision == "int8" and ing.cache.device.type == "cpu"
     with pytest.raises(NotImplementedError, match="sharded"):
         teng.RecommendationEngine(device="cpu").score_archive(
             type("Sharded", (), {"is_sharded": True})())

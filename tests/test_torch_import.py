@@ -31,9 +31,12 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.core.pool", "repro_torch.core.scoring",
            "repro_torch.core.config", "repro_torch.core.types",
            "repro_torch.kernels._build", "repro_torch.kernels.score_fuse",
-           "repro_torch.kernels.pool_scan", "repro_torch.parallel.compression",
+           "repro_torch.kernels.pool_scan", "repro_torch.kernels.stats_update",
+           "repro_torch.parallel.compression",
            "repro_torch.serve", "repro_torch.serve.archive",
-           "repro_torch.serve.server", "repro_torch.serve.histogram"]
+           "repro_torch.serve.server", "repro_torch.serve.histogram",
+           "repro_torch.stream", "repro_torch.stream.rolling",
+           "repro_torch.stream.ingest", "repro_torch.stream.admission"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
