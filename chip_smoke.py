@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and live-ingest paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, live-ingest and LM serving paths on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -35,7 +36,26 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    on the snapshot's statistics as in phase 3; the final statistics are held
    against ``candidate_stats`` of the window at RTOL 1e-5 / ATOL 1e-4 and
    the window against the feed.  Prints append latency and B3's times.
-5. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+5. LM phase: DeepSeek-V2-Lite at full width and depth (27 layers, 15.7 B
+   parameters in bf16 from a seeded ``torch.Generator`` on the card) with
+   ``use_pallas=True`` serves 16 prompts of 128 seeded tokens through
+   ``Model.prefill`` and 31 greedy ``Model.decode_step``s, the launch
+   counters of kernels B7/B8 (``moe_gmm``) reset just before and read just
+   after: each must launch once per MoE layer and forward (832 times).  On
+   the (E, C, D) buffers of the first MoE layer at prefill and at a decode
+   step, B7 and B8 are held against their plain versions (one bf16 ulp or
+   1e-3 * max).  The same weights then serve again through the reference's
+   einsum route (``use_pallas=False``): greedy tokens are compared, and a
+   sequence may part from it only at a step whose top-1 / top-2 logit
+   margin is under twice the prefill's max |delta logits|.  The random
+   full-depth model amplifies rounding to the size of its logits (printed:
+   the logits' response to a one-ulp step of one embedding element), so
+   the routes are also held layer by layer: on the same input, each
+   layer's update through the kernels must lie within ``LAYER_TOL`` of its
+   norm from the einsum route's, at prefill and at a decode step.  Prints
+   prefill and decode times, tokens/s, a profiled decode step, and B7/B8's
+   times and bounds.
+6. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without printing a result when CUDA is unavailable or when
 the ``src/repro_torch`` package is not beside this script.
@@ -71,10 +91,21 @@ INGEST_SERVE_AT = {"float32": (504, 1008, 1512), "int8": (600,)}
 # (4 more decodes on the int8 tier)
 B3_FLOPS = 68
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and float32
-# rate outside the tensor cores.
+# LM phase: the serving path of DeepSeek-V2-Lite at its published widths
+LM_ARCH = "deepseek-v2-lite-16b"
+LM_BATCH = 16
+LM_PROMPT = 128
+LM_NEW = 32            # the prefill's token, then 31 decode steps
+LM_SEED = 0
+# a layer's update may differ between the kernel and einsum routes by this
+# share of its norm (bf16 rounding of the expert MLP's intermediates)
+LAYER_TOL = 2e-2
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
+# rate outside the tensor cores, dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -641,6 +672,327 @@ def profile_serve(torch, cands):
                 top=[[round(ms, 4), k] for ms, k in rows[:8]])
 
 
+def bf16_closeness(got, want):
+    """(count beyond one bf16 ulp, count beyond both one ulp and 1e-3 *
+    max|want|, max |got - want|) of two tensors on the card."""
+    import torch
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    d = (got - want).abs()
+    far = d > ulp
+    bad = far & (d > 1e-3 * want.abs().max())
+    return int(far.sum()), int(bad.sum()), float(d.max())
+
+
+def generate(torch, model, params, prompt, new: int):
+    """Greedy serving: prefill, then ``new - 1`` decode steps.  Returns the
+    (B, new) tokens, the (B, new, V) float32 logits they were picked from,
+    the prefill time and the per-step decode times (host clock around work
+    that ends in a synchronise)."""
+    B, S = prompt.shape
+    cache = model.init_cache(B, S + new)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks, rows, step_ms = [tok], [logits[:, -1].float()], []
+    for i in range(new - 1):
+        t0 = time.perf_counter()
+        logits, cache = model.decode_step(params, tok, cache, S + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(tok)
+        rows.append(logits[:, -1].float())
+    return torch.cat(toks, 1), torch.stack(rows, 1), prefill_ms, step_ms
+
+
+def gmm_times(torch, gmm, name, args, c_rows):
+    """Kernel B7 or B8 alone on captured operands: device and call time,
+    the plain version's, torch.bmm's for B8, and the bound."""
+    fn = getattr(gmm, name)
+    call_ms, dev_ms = time_ms(lambda: fn(*args), ("gmm_kernel",))
+    plain_call_ms, plain_dev_ms = time_ms(lambda: fn(*args, backend="torch"),
+                                          None)
+    x = args[0]
+    E, C, K = x.shape
+    N = args[1].shape[-1]
+    n_w = len(args) - 1
+    nbytes = 2 * (E * C * K + n_w * E * K * N + E * C * N)
+    nops = 2 * n_w * E * C * K * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / BF16_OPS_PER_S * 1e3
+    lib_ms = None
+    if name == "moe_gmm_down":
+        lib_call_ms, lib_dev_ms = time_ms(lambda: torch.bmm(*args), None)
+        lib_ms = lib_dev_ms if lib_dev_ms is not None else lib_call_ms
+    return dict(E=E, C=C, K=K, N=N, c_rows=c_rows,
+                ms=dev_ms if dev_ms is not None else call_ms,
+                ms_source="profiler" if dev_ms is not None else "events",
+                call_ms=call_ms,
+                plain_ms=plain_dev_ms if plain_dev_ms is not None
+                else plain_call_ms,
+                plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=nops, library_ms=lib_ms)
+
+
+def _layer_stack(cfg, params, cache):
+    """(moe, params, cache) of every layer in order, as views."""
+    from repro_torch.models import lm
+    from repro_torch.models.param import tree_map
+    prefix, scanned, suffix, U = lm._partition(cfg)
+    out = [(lm._is_moe_layer(cfg, i), params["prefix"][n], cache["prefix"][n])
+           for n, i in enumerate(prefix)]
+    for u in range(U):
+        p_u = tree_map(lambda a: a[u], params["unit"])
+        c_u = tree_map(lambda a: a[u], cache["unit"])
+        for j in range(cfg.repeat_unit):
+            i = scanned[u * cfg.repeat_unit + j]
+            out.append((lm._is_moe_layer(cfg, i), p_u[f"b{j}"], c_u[f"b{j}"]))
+    out += [(lm._is_moe_layer(cfg, i), params["suffix"][n], cache["suffix"][n])
+            for n, i in enumerate(suffix)]
+    return out
+
+
+def layerwise(torch, cfg, ref_cfg, params, prompt):
+    """Each layer's update ``out - in`` through ``cfg`` (kernels) and
+    ``ref_cfg`` (einsum route) on the same input, at prefill and at the
+    first decode step, the stack advancing on ``cfg``'s output.  Returns the
+    per-layer |update_cfg - update_ref| / |update_cfg| (Frobenius norms)."""
+    from repro_torch.models import lm
+    B, S = prompt.shape
+    cache = lm.init_cache(cfg, B, S + 1, prompt.device)
+    stack = _layer_stack(cfg, params, cache)
+
+    def walk(x, positions, index, valid):
+        devs = []
+        for moe, p, c in stack:
+            # both routes write the same cache rows (attention is shared)
+            xa, _, _ = lm._apply_layer(cfg, moe, p, x, positions, c, index,
+                                       valid)
+            xb, _, _ = lm._apply_layer(ref_cfg, moe, p, x, positions, c, index,
+                                       valid)
+            upd = (xa.float() - x.float()).norm()
+            devs.append(float((xa.float() - xb.float()).norm() / upd))
+            x = xa
+        return x, devs
+
+    with torch.no_grad():
+        x = lm._embed_inputs(cfg, params, prompt, None)
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        x, pre = walk(x, pos, 0, S)
+        z = lm.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
+        tok = lm._logits(cfg, params, z)[:, -1].argmax(-1, keepdim=True)
+        x1 = lm._embed_inputs(cfg, params, tok, None)
+        pos1 = torch.full((B, 1), S, dtype=torch.int32, device=x.device)
+        _, dec = walk(x1, pos1, S, S + 1)
+    return pre, dec
+
+
+def sensitivity(torch, cfg, params, prompt):
+    """How far the model amplifies rounding: the prefill's last-position
+    logits after a one-ulp step of one embedding element, against the
+    unperturbed run, relative to max|logits|."""
+    from repro_torch.models import lm
+    B, S = prompt.shape
+    out = []
+    with torch.no_grad():
+        for bump in (False, True):
+            x = lm._embed_inputs(cfg, params, prompt, None)
+            if bump:
+                x.view(torch.int16)[0, 0, 0] += 1
+            pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+            cache = lm.init_cache(cfg, B, S, x.device)
+            x, _, _ = lm._run_stack(cfg, params, x, pos, cache, 0, S)
+            out.append(lm._logits(cfg, params, x[:, -1:]).float())
+    return float((out[1] - out[0]).abs().max() / out[0].abs().max())
+
+
+def profile_decode(torch, model, params, prompt):
+    """One decode step under ``torch.profiler``: wall time, the device's
+    busy time and idle share, and the largest device and host items."""
+    from torch.profiler import ProfilerActivity, profile
+    B, S = prompt.shape
+    cache = model.init_cache(B, S + 1)
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.decode_step(params, tok, cache, S)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev, host = [], []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            dev.append((dev_us / 1e3, evt.key[:60]))
+        if evt.self_cpu_time_total > 0:
+            host.append((evt.self_cpu_time_total / 1e3, evt.key[:60],
+                         evt.count))
+    dev.sort(reverse=True)
+    host.sort(reverse=True)
+    busy = sum(ms for ms, k in dev if not k.startswith("aten::"))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms if wall_ms > 0 else None,
+                device_top=[[round(ms, 4), k] for ms, k in dev[:10]],
+                host_top=[[round(ms, 4), k, n] for ms, k, n in host[:12]])
+
+
+def lm_phase(torch):
+    """DeepSeek-V2-Lite serving at full width and depth through B7/B8."""
+    from dataclasses import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as moe_lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
+    cfg = replace(get_config(LM_ARCH), use_pallas=True)
+    model = get_model(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+    report = dict(arch=LM_ARCH, layers=cfg.num_layers, moe_layers=n_moe,
+                  params=model.num_params(),
+                  param_bytes_allocated=torch.cuda.memory_allocated(),
+                  init_s=init_s, batch=LM_BATCH, prompt=LM_PROMPT,
+                  new_tokens=LM_NEW)
+    print(f"lm: {LM_ARCH}, {cfg.num_layers} layers, {report['params']} "
+          f"parameters, {report['param_bytes_allocated'] / 1e9:.2f} GB "
+          f"allocated, drawn in {init_s:.1f} s")
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(DEVICE)
+    c_prefill = moe_lib.capacity_of(cfg, LM_BATCH * LM_PROMPT)
+    c_decode = moe_lib.capacity_of(cfg, LM_BATCH)
+
+    # warm-up (prefill + 2 steps), capturing the first MoE layer's operands
+    # at prefill and at the first decode step
+    captured = {}
+    real = {"moe_gmm": moe_lib.moe_gmm, "moe_gmm_down": moe_lib.moe_gmm_down}
+
+    def capturing(name):
+        def wrapper(*args, **kw):
+            key = (name, "prefill" if args[0].shape[1] == c_prefill else "decode")
+            captured.setdefault(key, args)
+            return real[name](*args, **kw)
+        return wrapper
+
+    moe_lib.moe_gmm = capturing("moe_gmm")
+    moe_lib.moe_gmm_down = capturing("moe_gmm_down")
+    try:
+        generate(torch, model, params, prompt, 3)
+    finally:
+        moe_lib.moe_gmm, moe_lib.moe_gmm_down = real["moe_gmm"], real["moe_gmm_down"]
+
+    gmm.moe_gmm.launches = 0
+    gmm.moe_gmm_down.launches = 0
+    toks, rows, prefill_ms, step_ms = generate(torch, model, params, prompt,
+                                               LM_NEW)
+    launches = {"moe_gmm": gmm.moe_gmm.launches,
+                "moe_gmm_down": gmm.moe_gmm_down.launches}
+    want = n_moe * LM_NEW
+    for name, n in launches.items():
+        if n != want:
+            fail(f"lm: {name} launched {n} times, not {n_moe} per forward "
+                 f"x {LM_NEW} forwards = {want}")
+    if not bool(torch.isfinite(rows).all()):
+        fail("lm: non-finite logits")
+    if tuple(toks.shape) != (LM_BATCH, LM_NEW):
+        fail(f"lm: generated {tuple(toks.shape)} tokens")
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    served = LM_BATCH * LM_NEW
+    total_s = (prefill_ms + sum(step_ms)) / 1e3
+    report.update(
+        prefill_ms=prefill_ms,
+        decode_ms={"p50": float(np.percentile(step_ms, 50)),
+                   "p90": float(np.percentile(step_ms, 90)),
+                   "max": float(np.max(step_ms)), "steps": len(step_ms)},
+        decode_tokens_per_s=LM_BATCH / (np.percentile(step_ms, 50) / 1e3),
+        tokens_per_s=served / total_s, launches=launches)
+
+    # B7/B8 against their plain versions on the captured operands
+    checks, max_err, timings = {}, {"moe_gmm": 0.0, "moe_gmm_down": 0.0}, {}
+    for (name, phase), args in sorted(captured.items()):
+        fn = getattr(gmm, name)
+        got, plain = fn(*args), fn(*args, backend="torch")
+        torch.cuda.synchronize()
+        far, bad, err = bf16_closeness(got, plain)
+        checks[f"{name}@{phase}"] = dict(shape=list(args[0].shape),
+                                         beyond_one_ulp=far, max_abs_err=err,
+                                         elements=got.numel())
+        if bad:
+            fail(f"lm: {name} at {phase} differs from its plain version in "
+                 f"{bad} elements beyond one bf16 ulp and 1e-3 * max")
+        max_err[name] = max(max_err[name], err)
+        timings.setdefault(name, {})[phase] = gmm_times(
+            torch, gmm, name, args, c_prefill if phase == "prefill" else c_decode)
+    if len(checks) != 4:
+        fail(f"lm: captured {sorted(checks)}, expected both kernels at "
+             "prefill and decode")
+    report["kernel_checks"] = checks
+
+    # the same weights through the reference's einsum route
+    ref_model = get_model(replace(cfg, use_pallas=False), device=DEVICE)
+    ref_toks, ref_rows, ref_prefill_ms, ref_step_ms = generate(
+        torch, ref_model, params, prompt, LM_NEW)
+    d_prefill = float((rows[:, 0] - ref_rows[:, 0]).abs().max())
+    agree = toks == ref_toks
+    top2 = rows.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    agree_np = agree.cpu().numpy()
+    excused = parted = 0
+    shared_dev = 0.0
+    for b in range(LM_BATCH):
+        off = np.flatnonzero(~agree_np[b])
+        t0_ = int(off[0]) if off.size else LM_NEW
+        # logits on identical contexts: every step up to the first parting
+        upto = min(t0_ + 1, LM_NEW)
+        shared_dev = max(shared_dev, float(
+            (rows[b, :upto] - ref_rows[b, :upto]).abs().max()))
+        if off.size:
+            parted += 1
+            if margin[b, t0_] >= 2 * d_prefill:
+                fail(f"lm: sequence {b} parts from the einsum route at step "
+                     f"{t0_} with a top-1/top-2 margin {margin[b, t0_]:.4g} "
+                     f">= 2 x prefill max|dlogits| {2 * d_prefill:.4g}")
+            excused += int(off.size)
+    scale = float(ref_rows[:, 0].abs().max())
+    report["einsum_route"] = dict(
+        prefill_max_abs_dlogits=d_prefill,
+        prefill_rel_dlogits=d_prefill / scale,
+        shared_context_max_abs_dlogits=shared_dev,
+        tokens_agree=int(agree_np.sum()), tokens=served,
+        sequences_parted=parted,
+        disagreements_after_small_margin=excused,
+        prefill_ms=ref_prefill_ms,
+        decode_ms_p50=float(np.percentile(ref_step_ms, 50)))
+
+    # layer by layer on the same inputs: the two routes differ only in the
+    # expert MLP, so each layer's update must agree to bf16 rounding
+    pre, dec = layerwise(torch, cfg, replace(cfg, use_pallas=False), params,
+                         prompt)
+    report["layerwise_update_rel_dev"] = dict(
+        prefill_max=max(pre), decode_max=max(dec), prefill=pre, decode=dec)
+    worst = max(pre + dec)
+    if worst > LAYER_TOL:
+        fail(f"lm: a layer's update differs between the kernel and einsum "
+             f"routes by {worst:.3g} of its norm (> {LAYER_TOL})")
+    report["one_ulp_sensitivity"] = sensitivity(torch, cfg, params, prompt)
+    report["decode_profile"] = profile_decode(torch, model, params, prompt)
+    del params
+    torch.cuda.empty_cache()
+    return launches, timings, max_err, report
+
+
 def main() -> None:
     try:
         import torch
@@ -660,10 +1012,11 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    _build.build("score_fuse", "pool_scan", "stats_update")
-    print(f"built score_fuse.cu + pool_scan.cu + stats_update.cu in "
+    sources = ("score_fuse", "pool_scan", "stats_update", "moe_gmm")
+    _build.build(*sources)
+    print(f"built {' + '.join(f'{n}.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.2f} s")
-    for name in ("score_fuse", "pool_scan", "stats_update"):
+    for name in sources:
         for line in _build.build_log(name).splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
@@ -690,18 +1043,31 @@ def main() -> None:
             launches["stats_update"] = ingest_launches["stats_update"]
             timings["stats_update"] = ingest["b3"]
 
+    t0 = time.perf_counter()
+    lm_launches, lm_timings, lm_err, lm = lm_phase(torch)
+    lm["phase_s"] = time.perf_counter() - t0
+    print("lm: " + json.dumps({**lm, "kernel_times": lm_timings}))
+    launches.update(lm_launches)
+    for name, shapes in lm_timings.items():
+        timings[name] = {**shapes["decode"], "max_abs_err": lm_err[name],
+                         "shapes": shapes}
+
     meta = {"score_fuse": ("cuda", "src/repro_torch/csrc/score_fuse.cu",
                            "src/repro/kernels/score_fuse.py:189"),
             "pool_scan": ("cuda", "src/repro_torch/csrc/pool_scan.cu",
                           "src/repro/kernels/pool_scan.py:155"),
             "stats_update": ("cuda", "src/repro_torch/csrc/stats_update.cu",
-                             "src/repro/kernels/stats_update.py:203")}
+                             "src/repro/kernels/stats_update.py:203"),
+            "moe_gmm": ("cuda", "src/repro_torch/csrc/moe_gmm.cu",
+                        "src/repro/kernels/moe_gmm.py:23"),
+            "moe_gmm_down": ("cuda", "src/repro_torch/csrc/moe_gmm.cu",
+                             "src/repro/kernels/moe_gmm.py:78")}
     kernels = []
     for name, (route, source, replaces) in meta.items():
-        t = timings[name]
+        t = {"library_ms": None, **timings[name]}
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        **t, "library_ms": None})
+                        **t})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,10 @@ and numpy, never jax and nothing of ``repro``.  The serving main path —
 ``serve.BatchServer`` -> ``core.RecommendationEngine.recommend_batch`` —
 runs on the card through two hand-written CUDA kernels,
 ``kernels.score_fuse`` (Eq. 2-4) and ``kernels.pool_scan`` (Algorithm 1),
-built from ``csrc/`` on first use.  Entry points run on CUDA unless the
+built from ``csrc/`` on first use.  Live ingestion (``stream``) updates
+the statistics through ``kernels.stats_update``, and LM serving
+(``models``: DeepSeek-V2-Lite prefill and decode) runs its MoE expert
+MLPs through ``kernels.moe_gmm``.  Entry points run on CUDA unless the
 caller passes ``device="cpu"``, which takes the kernels' plain PyTorch
 versions.
 """

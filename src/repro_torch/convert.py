@@ -4,13 +4,15 @@ This system's "weights" are the staged candidate archive: the catalog
 columns, the (K, T) T3 window and its memoised Eq. 3 statistics.  With
 these two helpers a test or the on-card smoke run gives both packages (or
 two devices) bit-identical statistics, so that what is compared is what
-comes after them.
+comes after them.  :func:`params_from_jax` does the same for the LM
+stack's parameters.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ._device import resolve_device
 from .core.scoring import CandidateStats, f32
 from .core.types import CandidateSet
 from .serve.archive import DeviceArchive
@@ -59,3 +61,36 @@ def archive_from_numpy(cands: CandidateSet, stats=None, *, device=None,
             raise ValueError(f"stats must be three ({K},) arrays")
         object.__setattr__(archive, "_score_stats", CandidateStats(*rows))
     return archive
+
+
+def _tensor_from_numpy(a, device) -> torch.Tensor:
+    """One parameter leaf: bf16 (numpy's ``bfloat16`` extension type, as
+    ``np.asarray`` gives a JAX bf16 array) kept bit for bit through its raw
+    16-bit pattern; float32 and integer leaves as they are."""
+    a = np.array(a)             # an owned, writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(params_np_tree, *, device=None):
+    """The port's parameter tree from the reference's.
+
+    ``params_np_tree`` is the reference model's parameters with every leaf
+    turned into a numpy array (``jax.tree.map(np.asarray, params)``): nested
+    dicts and lists, the same layout as the port's ``Model.structure()``.
+    Each leaf lands on ``device`` (CUDA when ``None``) with its dtype and
+    bits unchanged.
+    """
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        if node is None:
+            return None
+        return _tensor_from_numpy(node, dev)
+
+    return walk(params_np_tree)

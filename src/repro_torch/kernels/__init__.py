@@ -5,6 +5,11 @@ PyTorch versions beside them.
                replaces ``repro.kernels.score_fuse._score_fuse_kernel``)
 - pool_scan  : Algorithm 1 all-prefix termination scan for a request batch
                (kernel B2, replaces ``repro.kernels.pool_scan._pool_scan_kernel``)
+- stats_update : the live-ingest rank-1 update of the Eq. 3 statistics
+               (kernel B3, replaces ``repro.kernels.stats_update._stats_update_kernel``)
+- moe_gmm    : MoE grouped expert matmuls over (E, C, D) capacity buffers
+               (kernels B7 and B8, replace ``repro.kernels.moe_gmm``'s
+               ``_gmm_up_kernel`` and ``_gmm_down_kernel``)
 
 CPU tensors take the plain version, CUDA tensors the kernel; ``_build``
 compiles ``csrc/*.cu`` with nvcc on first use.

@@ -1,0 +1,171 @@
+"""Attention: DeepSeek MLA over the shared attention core.
+
+PyTorch counterpart of the MLA half of ``repro.models.attention``.  The
+core is the reference's: direct softmax attention for short keys and
+decode, and above ``2 * kv_chunk`` keys the KV-chunked online-softmax scan
+(`_chunked_attend`, a Python loop over chunks in place of ``lax.scan``).
+The flash-attention kernel branch of :func:`attend` and the GQA module come
+with kernel B4's slice; until then :func:`attend` raises where the
+reference would take its flash branch.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from .layers import apply_rope, constrain, rmsnorm, rope_angles
+from .param import ParamSpec
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# core attention math
+# ---------------------------------------------------------------------------
+
+def _mask(qpos, kpos, *, causal: bool, window: int, kv_valid):
+    m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                   device=qpos.device)
+    if causal:
+        m &= qpos[:, None] >= kpos[None, :]
+    if window:
+        m &= (qpos[:, None] - kpos[None, :]) < window
+    if kv_valid is not None:
+        m &= (kpos < kv_valid)[None, :]
+    return m
+
+
+def _direct_attend(q, k, v, qpos, kpos, *, causal, window, kv_valid, scale):
+    """q: (B,Sq,KV,G,D); k/v: (B,Sk,KV,D)."""
+    s = torch.einsum("bqkgd,bckd->bqkgc", q, k).float() * scale
+    m = _mask(qpos, kpos, causal=causal, window=window, kv_valid=kv_valid)
+    s = torch.where(m[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype), v)
+
+
+def _chunked_attend(q, k, v, qpos, kpos, *, causal, window, kv_valid, scale,
+                    kv_chunk: int):
+    """Online-softmax scan over KV chunks (flash-attention recurrence).
+
+    K and V head dims may differ (MLA: 192-dim keys, 128-dim values).
+    """
+    B, Sq, KV, G, Dk = q.shape
+    Dv = v.shape[-1]
+    Sk = k.shape[1]
+    n_chunks = -(-Sk // kv_chunk)
+    pad = n_chunks * kv_chunk - Sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = torch.nn.functional.pad(kpos, (0, pad), value=2 ** 30)  # never valid
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, Sq, KV, G, Dv), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        kb, vb, kp = k[:, sl], v[:, sl], kpos[sl]
+        s = torch.einsum("bqkgd,bckd->bqkgc", q, kb).float() * scale
+        msk = _mask(qpos, kp, causal=causal, window=window, kv_valid=kv_valid)
+        s = torch.where(msk[None, :, None, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None]) * msk[None, :, None, None, :]
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bqkgc,bckd->bqkgd", p.to(vb.dtype), vb).float()
+        m = m_new
+    return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+
+def attend(q, k, v, qpos, kpos, *, causal=True, window=0, kv_valid=None,
+           kv_chunk=1024, use_pallas=False):
+    """Dispatch: direct (short keys, decode) or chunked scan (long keys)."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    Sq, Sk = q.shape[1], k.shape[1]
+    if use_pallas and Sq > 1 and causal and window == 0 and kv_valid is None:
+        raise NotImplementedError(
+            "the flash-attention kernel (B4) is not ported yet: it comes with "
+            "the training slice (ROADMAP B.4)")
+    if Sq == 1 or Sk <= 2 * kv_chunk:
+        return _direct_attend(q, k, v, qpos, kpos, causal=causal, window=window,
+                              kv_valid=kv_valid, scale=scale)
+    return _chunked_attend(q, k, v, qpos, kpos, causal=causal, window=window,
+                           kv_valid=kv_valid, scale=scale, kv_chunk=kv_chunk)
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_specs(cfg: ModelConfig) -> dict:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.padded_heads
+    qk = m.qk_nope_dim + m.qk_rope_dim
+    return {
+        "wq": ParamSpec((D, H, qk), ("embed", "heads", "head_dim")),
+        "w_dkv": ParamSpec((D, m.kv_lora_rank), ("embed", "lora")),
+        "w_krope": ParamSpec((D, m.qk_rope_dim), ("embed", "head_dim")),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), ("lora",), dtype=torch.float32,
+                             init="ones"),
+        "w_uk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_dim),
+                          (None, "heads", "head_dim")),
+        "w_uv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim),
+                          (None, "heads", "head_dim")),
+        "wo": ParamSpec((H, m.v_head_dim, D), ("heads", "head_dim", "embed"),
+                        fan_in_axes=(0, 1)),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                           dtype=torch.bfloat16, device=device),
+        "krope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                             dtype=torch.bfloat16, device=device),
+    }
+
+
+def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+              positions: torch.Tensor, cache: dict | None = None,
+              cache_index: int | None = None, kv_valid=None):
+    """MLA: KV compressed to rank-``kv_lora`` latents + a shared rope key.
+
+    The cache stores only (c_kv, k_rope); per-head K/V are reconstituted
+    through the up-projections.  Unlike the reference, which returns a new
+    cache, the port writes the new rows into ``cache`` in place (no copy of
+    the whole cache a step) and returns the same dict.
+    """
+    m = cfg.mla
+    H = cfg.padded_heads
+    B, Sq, D = x.shape
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    cos, sin = rope_angles(positions, m.qk_rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+
+    ckv = rmsnorm(p["kv_norm"], x @ p["w_dkv"], cfg.rms_eps)
+    krope = apply_rope((x @ p["w_krope"])[:, :, None, :], cos, sin)[:, :, 0, :]
+
+    if cache is not None:
+        idx = 0 if cache_index is None else int(cache_index)
+        cache["ckv"][:, idx:idx + Sq] = ckv.to(torch.bfloat16)
+        cache["krope"][:, idx:idx + Sq] = krope.to(torch.bfloat16)
+        ckv, krope = cache["ckv"], cache["krope"]
+
+    k_nope = constrain(torch.einsum("btl,lhk->bthk", ckv, p["w_uk"]),
+                       cfg, ("dp", None, "model", None))
+    v = constrain(torch.einsum("btl,lhk->bthk", ckv, p["w_uv"]),
+                  cfg, ("dp", None, "model", None))
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *krope.shape[:2], H, m.qk_rope_dim)], dim=-1)
+
+    qg = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # KV=H, G=1
+    qpos = positions[0] if positions.dim() == 2 else positions
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+    out = attend(qg.reshape(B, Sq, H, 1, -1), k, v, qpos, kpos, causal=True,
+                 kv_valid=kv_valid, kv_chunk=cfg.attn_chunk)
+    out = out.reshape(B, Sq, H, m.v_head_dim)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache

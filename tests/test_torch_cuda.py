@@ -5,12 +5,18 @@ inside the fixture, never at import).  Run them on a GPU machine with::
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Every kernel is built with ``--fmad=false`` and keeps the plain version's
-op order, so every output must be bit-identical.
+Kernels B1-B3 are built with ``--fmad=false`` and keep the plain
+version's op order, so their outputs must be bit-identical.  B7/B8 (the
+MoE grouped matmuls) sum in the tensor cores' order, so every element must
+lie within one bf16 ulp of the plain version's float32 einsum, or within
+1e-3 * max|plain|.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+from _bf16_helpers import assert_within_ulp
 
 from repro_torch import convert
 from repro_torch.core import pool as tpool
@@ -19,6 +25,7 @@ from repro_torch.core.types import CandidateSet, RequestBatch, ResourceRequest
 from repro_torch.kernels import _build
 from repro_torch.kernels import pool_scan as tps
 from repro_torch.kernels import score_fuse as tsf
+from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import stats_update as tsu
 from repro_torch.parallel import compression as tcomp
 from repro_torch.serve import BatchServer, DeviceArchive
@@ -202,3 +209,55 @@ def test_rolling_archive_on_the_card_matches_cpu(cuda):
         for a, b in zip(gpu.score_stats(), cpu.score_stats()):
             assert _same(a.cpu(), b)
         assert gpu.clipped_samples == cpu.clipped_samples
+
+
+@pytest.mark.parametrize("E,C,D,F", [
+    (64, 8, 2048, 1408),     # decode shape of DeepSeek-V2-Lite
+    (8, 240, 2048, 1408),    # prefill rows (eight of the 64 experts)
+    (3, 20, 200, 72),        # tails in C, D and F
+    (2, 33, 136, 264),       # C between the tile heights
+    (2, 5, 37, 19),          # rows not 16-byte aligned: element-wise loads
+])
+def test_moe_gmm_kernels_match_plain_versions(cuda, E, C, D, F):
+    g = torch.Generator(device=cuda).manual_seed(E * C + D)
+    bf = lambda *s, k=1.0: (torch.randn(*s, generator=g, device=cuda) * k  # noqa: E731
+                            ).to(torch.bfloat16)
+    x, w1, w3, w2 = bf(E, C, D), bf(E, D, F, k=D ** -0.5), \
+        bf(E, D, F, k=D ** -0.5), bf(E, F, D, k=F ** -0.5)
+    before = (tgmm.moe_gmm.launches, tgmm.moe_gmm_down.launches)
+    h = tgmm.moe_gmm(x, w1, w3)
+    y = tgmm.moe_gmm_down(h, w2)
+    torch.cuda.synchronize()
+    assert (tgmm.moe_gmm.launches, tgmm.moe_gmm_down.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert_within_ulp(h, tgmm.moe_gmm(x, w1, w3, backend="torch"))
+    assert_within_ulp(y, tgmm.moe_gmm_down(h, w2, backend="torch"))
+
+
+def test_reduced_lm_on_the_card_matches_cpu(cuda):
+    """The reduced DeepSeek-V2-Lite served on the card (B7/B8 launched in
+    every MoE layer) against the same weights on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.param import tree_map
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(),
+                              use_pallas=True)
+    gpu, cpu = get_model(cfg, device=cuda), get_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gparams = tree_map(lambda t: t.to(cuda), params)
+    prompt = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 72)))
+    gc, cc = gpu.init_cache(2, 76), cpu.init_cache(2, 76)
+    tgmm.moe_gmm.launches = 0
+    lg, gc = gpu.prefill(gparams, {"tokens": prompt.to(cuda)}, gc)
+    lc, cc = cpu.prefill(params, {"tokens": prompt}, cc)
+    tok = lc[:, -1].float().argmax(-1, keepdim=True)
+    for i in range(3):
+        a, gc = gpu.decode_step(gparams, tok.to(cuda), gc, 72 + i)
+        b, cc = cpu.decode_step(params, tok, cc, 72 + i)
+        ref = b.float()
+        assert float((a.float().cpu() - ref).abs().max()) <= 5e-2 * float(ref.abs().max())
+        tok = ref[:, -1].argmax(-1, keepdim=True)
+    assert tgmm.moe_gmm.launches == 4          # one MoE layer x 4 forwards
+    ref = lc.float()
+    assert float((lg.float().cpu() - ref).abs().max()) <= 5e-2 * float(ref.abs().max())

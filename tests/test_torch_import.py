@@ -17,10 +17,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import _device
+from repro_torch import _device, convert
+from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import RecommendationEngine
 from repro_torch.core.types import CandidateSet
 from repro_torch.kernels import _build
+from repro_torch.models import get_model
 from repro_torch.serve import ArchiveCache, BatchServer, DeviceArchive
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -36,7 +38,12 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.serve", "repro_torch.serve.archive",
            "repro_torch.serve.server", "repro_torch.serve.histogram",
            "repro_torch.stream", "repro_torch.stream.rolling",
-           "repro_torch.stream.ingest", "repro_torch.stream.admission"]
+           "repro_torch.stream.ingest", "repro_torch.stream.admission",
+           "repro_torch.kernels.moe_gmm", "repro_torch.configs",
+           "repro_torch.configs.registry", "repro_torch.models",
+           "repro_torch.models.param", "repro_torch.models.layers",
+           "repro_torch.models.attention", "repro_torch.models.moe",
+           "repro_torch.models.lm", "repro_torch.models.api"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
@@ -93,7 +100,10 @@ def _tiny_candidates() -> CandidateSet:
     lambda: BatchServer(),
     lambda: ArchiveCache(),
     lambda: DeviceArchive.stage(_tiny_candidates()),
-], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage"])
+    lambda: get_model(get_config("deepseek-v2-lite-16b")),
+    lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
+], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage",
+        "model", "params"])
 def test_default_device_raises_without_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
