@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, live-ingest and LM serving paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's serving, live-ingest and LM serving paths
+(DeepSeek-V2-Lite, RWKV6-7B, RecurrentGemma-2B) on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -36,25 +36,34 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    on the snapshot's statistics as in phase 3; the final statistics are held
    against ``candidate_stats`` of the window at RTOL 1e-5 / ATOL 1e-4 and
    the window against the feed.  Prints append latency and B3's times.
-5. LM phase: DeepSeek-V2-Lite at full width and depth (27 layers, 15.7 B
-   parameters in bf16 from a seeded ``torch.Generator`` on the card) with
-   ``use_pallas=True`` serves 16 prompts of 128 seeded tokens through
-   ``Model.prefill`` and 31 greedy ``Model.decode_step``s, the launch
-   counters of kernels B7/B8 (``moe_gmm``) reset just before and read just
-   after: each must launch once per MoE layer and forward (832 times).  On
-   the (E, C, D) buffers of the first MoE layer at prefill and at a decode
-   step, B7 and B8 are held against their plain versions (one bf16 ulp or
-   1e-3 * max).  The same weights then serve again through the reference's
-   einsum route (``use_pallas=False``): greedy tokens are compared, and a
-   sequence may part from it only at a step whose top-1 / top-2 logit
-   margin is under twice the prefill's max |delta logits|.  The random
-   full-depth model amplifies rounding to the size of its logits (printed:
-   the logits' response to a one-ulp step of one embedding element), so
-   the routes are also held layer by layer: on the same input, each
-   layer's update through the kernels must lie within ``LAYER_TOL`` of its
-   norm from the einsum route's, at prefill and at a decode step.  Prints
-   prefill and decode times, tokens/s, a profiled decode step, and B7/B8's
-   times and bounds.
+5. LM phases, one per architecture, each through ``lm_phase``:
+   DeepSeek-V2-Lite (27 layers, 15.7 B parameters), ``rwkv6-7b`` (32
+   layers, 8.88 B) and ``recurrentgemma-2b`` (26 layers, 3.55 B) at full
+   width and depth, bf16 weights from a seeded ``torch.Generator`` on the
+   card, ``use_pallas=True``.  Each serves 16 prompts of 128 seeded tokens
+   through ``Model.prefill`` and 31 greedy ``Model.decode_step``s, the
+   launch counters of its kernels reset just before and read just after:
+   B7/B8 (``moe_gmm``) must launch once per MoE layer and forward (832
+   times); B5 ``rwkv6_scan`` (B6 ``rglru_scan``) once per rwkv (rglru)
+   layer of the prefill, 32 (18) times, decode taking the reference's step
+   functions.  On the operands captured from the first such layer, each
+   kernel is held against its plain version: B7 and B8 at prefill and at a
+   decode step (one bf16 ulp or 1e-3 * max); B5 as captured, with a seeded
+   random ``u`` (the model's is drawn as zeros, which leaves the bonus term
+   untested) and on a 77-step prefix from the state the first check ends
+   in, each output within ``WKV_TOL`` of its own max|plain|; B6 as captured
+   and on the 77-step prefix, bit for bit.  The same weights then serve
+   again through the reference's plain route (``use_pallas=False``) and
+   greedy tokens are compared; for DeepSeek-V2-Lite a sequence may part from
+   it only at a step whose top-1 / top-2 logit margin is under twice the
+   prefill's max |delta logits|.  The random full-depth models amplify
+   rounding to the size of their logits (printed: the logits' response to
+   a one-ulp step of one embedding element), so the routes are also held
+   layer by layer: on the same input, each layer's update through the
+   kernels must lie within ``LAYER_TOL`` of its norm from the plain
+   route's, at prefill and at a decode step.  Prints prefill and decode
+   times, tokens/s, a profiled decode step, and the kernels' times and
+   bounds.  Each model is freed before the next.
 6. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without printing a result when CUDA is unavailable or when
@@ -91,15 +100,20 @@ INGEST_SERVE_AT = {"float32": (504, 1008, 1512), "int8": (600,)}
 # (4 more decodes on the int8 tier)
 B3_FLOPS = 68
 
-# LM phase: the serving path of DeepSeek-V2-Lite at its published widths
-LM_ARCH = "deepseek-v2-lite-16b"
+# LM phases: the serving paths of three architectures at their published
+# widths and depths, the same batch, prompt and decode length for each
+LM_ARCHS = ("deepseek-v2-lite-16b", "rwkv6-7b", "recurrentgemma-2b")
 LM_BATCH = 16
 LM_PROMPT = 128
 LM_NEW = 32            # the prefill's token, then 31 decode steps
 LM_SEED = 0
-# a layer's update may differ between the kernel and einsum routes by this
-# share of its norm (bf16 rounding of the expert MLP's intermediates)
+# a layer's update may differ between the kernel and plain routes by this
+# share of its norm (bf16 rounding of the kernels' outputs)
 LAYER_TOL = 2e-2
+# B5 is held to its plain version within WKV_TOL of each output's max|plain|
+# (the chunk's cumsum and contractions sum in another order), B6 bit for bit
+WKV_TOL = 1e-4
+RAGGED_S = 77          # a prompt length that is no multiple of either chunk
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
 # rate outside the tensor cores, dense bf16 tensor-core rate.
@@ -741,41 +755,46 @@ def gmm_times(torch, gmm, name, args, c_rows):
 
 
 def _layer_stack(cfg, params, cache):
-    """(moe, params, cache) of every layer in order, as views."""
+    """(kind, moe, params, cache) of every layer in order, as views."""
     from repro_torch.models import lm
     from repro_torch.models.param import tree_map
     prefix, scanned, suffix, U = lm._partition(cfg)
-    out = [(lm._is_moe_layer(cfg, i), params["prefix"][n], cache["prefix"][n])
+    info = lambda i: (lm._layer_kind(cfg, i), lm._is_moe_layer(cfg, i))  # noqa: E731
+    out = [(*info(i), params["prefix"][n], cache["prefix"][n])
            for n, i in enumerate(prefix)]
     for u in range(U):
         p_u = tree_map(lambda a: a[u], params["unit"])
         c_u = tree_map(lambda a: a[u], cache["unit"])
         for j in range(cfg.repeat_unit):
             i = scanned[u * cfg.repeat_unit + j]
-            out.append((lm._is_moe_layer(cfg, i), p_u[f"b{j}"], c_u[f"b{j}"]))
-    out += [(lm._is_moe_layer(cfg, i), params["suffix"][n], cache["suffix"][n])
+            out.append((*info(i), p_u[f"b{j}"], c_u[f"b{j}"]))
+    out += [(*info(i), params["suffix"][n], cache["suffix"][n])
             for n, i in enumerate(suffix)]
     return out
 
 
 def layerwise(torch, cfg, ref_cfg, params, prompt):
     """Each layer's update ``out - in`` through ``cfg`` (kernels) and
-    ``ref_cfg`` (einsum route) on the same input, at prefill and at the
-    first decode step, the stack advancing on ``cfg``'s output.  Returns the
-    per-layer |update_cfg - update_ref| / |update_cfg| (Frobenius norms)."""
+    ``ref_cfg`` (the plain route) on the same input and the same starting
+    cache, at prefill and at the first decode step, the stack advancing on
+    ``cfg``'s output and cache.  Returns the per-layer |update_cfg -
+    update_ref| / |update_cfg| (Frobenius norms)."""
     from repro_torch.models import lm
+    from repro_torch.models.param import tree_map
     B, S = prompt.shape
     cache = lm.init_cache(cfg, B, S + 1, prompt.device)
     stack = _layer_stack(cfg, params, cache)
 
-    def walk(x, positions, index, valid):
+    def walk(x, positions, index, valid, decode):
         devs = []
-        for moe, p, c in stack:
-            # both routes write the same cache rows (attention is shared)
-            xa, _, _ = lm._apply_layer(cfg, moe, p, x, positions, c, index,
-                                       valid)
-            xb, _, _ = lm._apply_layer(ref_cfg, moe, p, x, positions, c, index,
-                                       valid)
+        for kind, moe, p, c in stack:
+            # the plain route starts from a copy of the same cache (the
+            # recurrent states are read and written in place)
+            c_ref = tree_map(torch.clone, c)
+            xa = lm._apply_layer(cfg, kind, moe, p, x, positions, c, index,
+                                 valid, decode)[0]
+            xb = lm._apply_layer(ref_cfg, kind, moe, p, x, positions, c_ref,
+                                 index, valid, decode)[0]
             upd = (xa.float() - x.float()).norm()
             devs.append(float((xa.float() - xb.float()).norm() / upd))
             x = xa
@@ -784,12 +803,12 @@ def layerwise(torch, cfg, ref_cfg, params, prompt):
     with torch.no_grad():
         x = lm._embed_inputs(cfg, params, prompt, None)
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        x, pre = walk(x, pos, 0, S)
+        x, pre = walk(x, pos, 0, S, False)
         z = lm.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
         tok = lm._logits(cfg, params, z)[:, -1].argmax(-1, keepdim=True)
         x1 = lm._embed_inputs(cfg, params, tok, None)
         pos1 = torch.full((B, 1), S, dtype=torch.int32, device=x.device)
-        _, dec = walk(x1, pos1, S, S + 1)
+        _, dec = walk(x1, pos1, S, S + 1, True)
     return pre, dec
 
 
@@ -807,7 +826,7 @@ def sensitivity(torch, cfg, params, prompt):
                 x.view(torch.int16)[0, 0, 0] += 1
             pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
             cache = lm.init_cache(cfg, B, S, x.device)
-            x, _, _ = lm._run_stack(cfg, params, x, pos, cache, 0, S)
+            x, _, _ = lm._run_stack(cfg, params, x, pos, cache, 0, S, False)
             out.append(lm._logits(cfg, params, x[:, -1:]).float())
     return float((out[1] - out[0]).abs().max() / out[0].abs().max())
 
@@ -844,83 +863,71 @@ def profile_decode(torch, model, params, prompt):
                 host_top=[[round(ms, 4), k, n] for ms, k, n in host[:12]])
 
 
-def lm_phase(torch):
-    """DeepSeek-V2-Lite serving at full width and depth through B7/B8."""
-    from dataclasses import replace
-    from repro_torch.configs.registry import get_config
+def wkv_cost(B, S, H, D):
+    """(bytes, float32 operations) that one B5 call needs: each input read
+    once, each output written once; per (batch, head) and chunk of c real
+    rows, the cumsum, the c(c-1)/2 pairwise decays (a difference, an
+    exponential, two products and an add per channel) and their product
+    with v, the inter-chunk query and its (c x D) @ (D x D) product, the
+    bonus, and the state update with its (D x c) @ (c x D) product."""
+    from repro_torch.kernels.rwkv6_scan import CHUNK
+    nbytes = 2 * 3 * B * S * H * D + 4 * B * S * H * D + 4 * H * D \
+        + 4 * B * H * D * D + 4 * B * S * H * D + 4 * B * H * D * D
+    ops = 0
+    for t0 in range(0, S, CHUNK):
+        c = min(CHUNK, S - t0)
+        pairs = c * (c - 1) // 2
+        ops += (c * D                      # cumsum
+                + c * D + pairs * D * 5    # cw - w; pairwise decay terms
+                + 2 * pairs * D            # att @ v
+                + 3 * c * D + 2 * c * D * D  # r * exp(cw - w); @ s
+                + 3 * c * D + c * D        # bonus
+                + 2 * c * D                # inter + intra + bonus
+                + 3 * c * D + 2 * c * D * D + D + 2 * D * D)  # state
+    return nbytes, ops * B * H
+
+
+def rglru_cost(B, S, R):
+    """(bytes, float32 operations) that one B6 call needs: log_a and x read
+    once, hs written once, h0 and h_last; per channel and chunk of c rows
+    the carry fold (an exponential, a product, an add) and the doubling
+    steps (an exponential, a product and two adds on each row t >= off)."""
+    from repro_torch.kernels.rglru_scan import CHUNK
+    nbytes = 4 * 3 * B * S * R + 4 * 2 * B * R
+    ops = 0
+    for t0 in range(0, S, CHUNK):
+        c = min(CHUNK, S - t0)
+        ops += 3 + sum(4 * (c - (1 << d)) for d in range(c.bit_length())
+                       if c > (1 << d))
+    return nbytes, ops * B * R
+
+
+def scan_times(torch, fn, args, knames, cost):
+    """A scan kernel alone on captured inputs: device and call time, the
+    plain version's, and the bound."""
+    call_ms, dev_ms = time_ms(lambda: fn(*args), knames)
+    plain_call_ms, plain_dev_ms = time_ms(lambda: fn(*args, backend="torch"),
+                                          None)
+    nbytes, nops = cost
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return dict(shape=list(args[0].shape),
+                ms=dev_ms if dev_ms is not None else call_ms,
+                ms_source="profiler" if dev_ms is not None else "events",
+                call_ms=call_ms,
+                plain_ms=plain_dev_ms if plain_dev_ms is not None
+                else plain_call_ms,
+                plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=nops, library_ms=None)
+
+
+def hold_gmm(torch, arch, captured, c_prefill, c_decode):
+    """B7 and B8 against their plain versions on the first MoE layer's
+    operands at prefill and at a decode step (one bf16 ulp or 1e-3 * max),
+    and their times there."""
     from repro_torch.kernels import moe_gmm as gmm
-    from repro_torch.models import get_model
-    from repro_torch.models import moe as moe_lib
-
-    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
-    cfg = replace(get_config(LM_ARCH), use_pallas=True)
-    model = get_model(cfg, device=DEVICE)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
-    report = dict(arch=LM_ARCH, layers=cfg.num_layers, moe_layers=n_moe,
-                  params=model.num_params(),
-                  param_bytes_allocated=torch.cuda.memory_allocated(),
-                  init_s=init_s, batch=LM_BATCH, prompt=LM_PROMPT,
-                  new_tokens=LM_NEW)
-    print(f"lm: {LM_ARCH}, {cfg.num_layers} layers, {report['params']} "
-          f"parameters, {report['param_bytes_allocated'] / 1e9:.2f} GB "
-          f"allocated, drawn in {init_s:.1f} s")
-    prompt = torch.from_numpy(np.random.default_rng(7).integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(DEVICE)
-    c_prefill = moe_lib.capacity_of(cfg, LM_BATCH * LM_PROMPT)
-    c_decode = moe_lib.capacity_of(cfg, LM_BATCH)
-
-    # warm-up (prefill + 2 steps), capturing the first MoE layer's operands
-    # at prefill and at the first decode step
-    captured = {}
-    real = {"moe_gmm": moe_lib.moe_gmm, "moe_gmm_down": moe_lib.moe_gmm_down}
-
-    def capturing(name):
-        def wrapper(*args, **kw):
-            key = (name, "prefill" if args[0].shape[1] == c_prefill else "decode")
-            captured.setdefault(key, args)
-            return real[name](*args, **kw)
-        return wrapper
-
-    moe_lib.moe_gmm = capturing("moe_gmm")
-    moe_lib.moe_gmm_down = capturing("moe_gmm_down")
-    try:
-        generate(torch, model, params, prompt, 3)
-    finally:
-        moe_lib.moe_gmm, moe_lib.moe_gmm_down = real["moe_gmm"], real["moe_gmm_down"]
-
-    gmm.moe_gmm.launches = 0
-    gmm.moe_gmm_down.launches = 0
-    toks, rows, prefill_ms, step_ms = generate(torch, model, params, prompt,
-                                               LM_NEW)
-    launches = {"moe_gmm": gmm.moe_gmm.launches,
-                "moe_gmm_down": gmm.moe_gmm_down.launches}
-    want = n_moe * LM_NEW
-    for name, n in launches.items():
-        if n != want:
-            fail(f"lm: {name} launched {n} times, not {n_moe} per forward "
-                 f"x {LM_NEW} forwards = {want}")
-    if not bool(torch.isfinite(rows).all()):
-        fail("lm: non-finite logits")
-    if tuple(toks.shape) != (LM_BATCH, LM_NEW):
-        fail(f"lm: generated {tuple(toks.shape)} tokens")
-    report["peak_bytes"] = torch.cuda.max_memory_allocated()
-    served = LM_BATCH * LM_NEW
-    total_s = (prefill_ms + sum(step_ms)) / 1e3
-    report.update(
-        prefill_ms=prefill_ms,
-        decode_ms={"p50": float(np.percentile(step_ms, 50)),
-                   "p90": float(np.percentile(step_ms, 90)),
-                   "max": float(np.max(step_ms)), "steps": len(step_ms)},
-        decode_tokens_per_s=LM_BATCH / (np.percentile(step_ms, 50) / 1e3),
-        tokens_per_s=served / total_s, launches=launches)
-
-    # B7/B8 against their plain versions on the captured operands
-    checks, max_err, timings = {}, {"moe_gmm": 0.0, "moe_gmm_down": 0.0}, {}
+    checks, max_err, shapes = {}, {}, {}
     for (name, phase), args in sorted(captured.items()):
         fn = getattr(gmm, name)
         got, plain = fn(*args), fn(*args, backend="torch")
@@ -930,29 +937,218 @@ def lm_phase(torch):
                                          beyond_one_ulp=far, max_abs_err=err,
                                          elements=got.numel())
         if bad:
-            fail(f"lm: {name} at {phase} differs from its plain version in "
-                 f"{bad} elements beyond one bf16 ulp and 1e-3 * max")
-        max_err[name] = max(max_err[name], err)
-        timings.setdefault(name, {})[phase] = gmm_times(
+            fail(f"{arch}: {name} at {phase} differs from its plain version "
+                 f"in {bad} elements beyond one bf16 ulp and 1e-3 * max")
+        max_err[name] = max(max_err.get(name, 0.0), err)
+        shapes.setdefault(name, {})[phase] = gmm_times(
             torch, gmm, name, args, c_prefill if phase == "prefill" else c_decode)
     if len(checks) != 4:
-        fail(f"lm: captured {sorted(checks)}, expected both kernels at "
+        fail(f"{arch}: captured {sorted(checks)}, expected both kernels at "
              "prefill and decode")
+    timings = {name: {**s["decode"], "max_abs_err": max_err[name], "shapes": s}
+               for name, s in shapes.items()}
+    return checks, timings
+
+
+def hold_wkv(torch, arch, captured):
+    """B5 against its plain version on the first rwkv layer's inputs: as
+    captured; with a seeded random ``u`` (the model draws ``u`` as zeros,
+    which leaves the current token's bonus untested); and on a ragged prefix
+    of them with that ``u``, starting from the state the first check ends
+    in.  Each output must lie within ``WKV_TOL`` of its own max|plain|."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    args = captured[("rwkv6_scan", "prefill")]
+    r, k, v, log_w, u, s0 = args
+    u_rand = torch.from_numpy(np.random.default_rng(LM_SEED).standard_normal(
+        tuple(u.shape)).astype(np.float32)).to(u.device)
+    checks = {}
+
+    def hold(label, a):
+        got, plain = rwkv6_scan(*a), rwkv6_scan(*a, backend="torch")
+        torch.cuda.synchronize()
+        checks[label] = {"shape": list(a[0].shape)}
+        for part, g, w in zip(("out", "s_final"), got, plain):
+            err, scale = float((g - w).abs().max()), float(w.abs().max())
+            checks[label][part] = dict(max_abs_err=err, max_abs_plain=scale)
+            if err > WKV_TOL * scale:
+                fail(f"{arch}: rwkv6_scan's {part} at {label} differs from "
+                     f"its plain version by {err:.3g} > {WKV_TOL} x "
+                     f"max|plain| {scale:.3g}")
+        return plain
+
+    plain = hold("prefill", args)
+    hold("prefill, u ~ N(0, 1)", (r, k, v, log_w, u_rand, s0))
+    hold(f"S={RAGGED_S}, u ~ N(0, 1)",
+         (*(t[:, :RAGGED_S].contiguous() for t in (r, k, v, log_w)), u_rand,
+          plain[1].contiguous()))
+    timing = scan_times(torch, rwkv6_scan, args, ("wkv_kernel",),
+                        wkv_cost(*r.shape))
+    timing.update(max_abs_err=max(c[p]["max_abs_err"] for c in checks.values()
+                                  for p in ("out", "s_final")),
+                  tolerance=f"{WKV_TOL} x max|plain| of each output")
+    return checks, {"rwkv6_scan": timing}
+
+
+def hold_rglru(torch, arch, captured):
+    """B6 against its plain version, bit for bit, on the first rglru
+    layer's inputs and on a ragged prefix of them that starts from the state
+    the first check ends in."""
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    args = captured[("rglru_scan", "prefill")]
+    log_a, x_in, _ = args
+    checks = {}
+
+    def hold(label, a):
+        got, plain = rglru_scan(*a), rglru_scan(*a, backend="torch")
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, plain))
+        same = all(same_bits(g, w) for g, w in zip(got, plain))
+        checks[label] = dict(shape=list(a[0].shape), max_abs_err=err,
+                             bit_identical=same)
+        if not same:
+            fail(f"{arch}: rglru_scan at {label} is not bit-identical to its "
+                 "plain version")
+        return plain
+
+    plain = hold("prefill", args)
+    hold(f"S={RAGGED_S}", (log_a[:, :RAGGED_S].contiguous(),
+                           x_in[:, :RAGGED_S].contiguous(),
+                           plain[1].contiguous()))
+    timing = scan_times(torch, rglru_scan, args, ("rglru_kernel",),
+                        rglru_cost(*log_a.shape))
+    timing.update(max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+                  tolerance="bit-identical")
+    return checks, {"rglru_scan": timing}
+
+
+def lm_path(cfg):
+    """What :func:`lm_phase` drives and holds for ``cfg``: the model module
+    whose kernel wrappers it patches to capture operands (``kernels``: name
+    -> (module attribute, wrapper)), the launches each kernel must make in
+    one prefill and ``LM_NEW - 1`` decode steps, which phase a call belongs
+    to, the check of the captured operands, and whether greedy tokens may
+    part from the plain route only at a small margin."""
+    from repro_torch.kernels import moe_gmm, rglru_scan, rwkv6_scan
+    from repro_torch.models import moe, rglru, rwkv6
+    if cfg.moe:
+        # DeepSeek-V2-Lite: B7/B8 in every MoE layer, at prefill and decode
+        n = cfg.num_layers - cfg.moe.first_dense_layers
+        c_prefill = moe.capacity_of(cfg, LM_BATCH * LM_PROMPT)
+        c_decode = moe.capacity_of(cfg, LM_BATCH)
+        return dict(
+            module=moe, layers=n, launches=n * LM_NEW,
+            per=f"once per MoE layer ({n}) and forward ({LM_NEW})",
+            kernels={"moe_gmm": ("moe_gmm", moe_gmm.moe_gmm),
+                     "moe_gmm_down": ("moe_gmm_down", moe_gmm.moe_gmm_down)},
+            phase=lambda args: ("prefill" if args[0].shape[1] == c_prefill
+                                else "decode"),
+            hold=lambda torch, arch, captured: hold_gmm(
+                torch, arch, captured, c_prefill, c_decode),
+            gate_parting=True)
+    # the recurrent models: the scan kernel at prefill, the reference's step
+    # function at decode
+    kind = "rwkv" if "rwkv" in cfg.block_pattern else "rglru"
+    n = sum(cfg.block_pattern[i % cfg.repeat_unit] == kind
+            for i in range(cfg.num_layers))
+    common = dict(layers=n, launches=n, phase=lambda args: "prefill",
+                  per=f"once per {kind} layer of the prefill ({n})",
+                  gate_parting=False)
+    if kind == "rwkv":
+        return dict(common, module=rwkv6, hold=hold_wkv, kernels={
+            "rwkv6_scan": ("rwkv6_scan", rwkv6_scan.rwkv6_scan)})
+    return dict(common, module=rglru, hold=hold_rglru, kernels={
+        "rglru_scan": ("rglru_kernel", rglru_scan.rglru_scan)})
+
+
+def lm_phase(torch, arch):
+    """``arch`` served at full width and depth through its kernels
+    (:func:`lm_path`), then held against the plain route."""
+    from dataclasses import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
+    cfg = replace(get_config(arch), use_pallas=True)
+    path = lm_path(cfg)
+    kernels, module = path["kernels"], path["module"]
+    model = get_model(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    report = dict(arch=arch, layers=cfg.num_layers,
+                  kernel_layers=path["layers"], params=model.num_params(),
+                  param_bytes_allocated=torch.cuda.memory_allocated(),
+                  init_s=init_s, batch=LM_BATCH, prompt=LM_PROMPT,
+                  new_tokens=LM_NEW)
+    print(f"{arch}: {cfg.num_layers} layers ({path['layers']} through "
+          f"{' + '.join(kernels)}), {report['params']} parameters, "
+          f"{report['param_bytes_allocated'] / 1e9:.2f} GB allocated, drawn "
+          f"in {init_s:.1f} s")
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(DEVICE)
+
+    # warm-up (prefill + 2 steps), capturing each kernel's first operands in
+    # each phase (prefill, decode) that it runs in
+    captured = {}
+    real = {name: getattr(module, attr) for name, (attr, _) in kernels.items()}
+
+    def capturing(name):
+        def wrapper(*args, **kw):
+            captured.setdefault((name, path["phase"](args)), args)
+            return real[name](*args, **kw)
+        return wrapper
+
+    for name, (attr, _) in kernels.items():
+        setattr(module, attr, capturing(name))
+    try:
+        generate(torch, model, params, prompt, 3)
+    finally:
+        for name, (attr, _) in kernels.items():
+            setattr(module, attr, real[name])
+
+    for _, fn in kernels.values():
+        fn.launches = 0
+    toks, rows, prefill_ms, step_ms = generate(torch, model, params, prompt,
+                                               LM_NEW)
+    launches = {name: fn.launches for name, (_, fn) in kernels.items()}
+    for name, n in launches.items():
+        if n != path["launches"]:
+            fail(f"{arch}: {name} launched {n} times in one prefill and "
+                 f"{LM_NEW - 1} decode steps, not {path['per']}: "
+                 f"{path['launches']}")
+    if not bool(torch.isfinite(rows).all()):
+        fail(f"{arch}: non-finite logits")
+    if tuple(toks.shape) != (LM_BATCH, LM_NEW):
+        fail(f"{arch}: generated {tuple(toks.shape)} tokens")
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    served = LM_BATCH * LM_NEW
+    report.update(
+        prefill_ms=prefill_ms,
+        decode_ms={"p50": float(np.percentile(step_ms, 50)),
+                   "p90": float(np.percentile(step_ms, 90)),
+                   "max": float(np.max(step_ms)), "steps": len(step_ms)},
+        decode_tokens_per_s=LM_BATCH / (np.percentile(step_ms, 50) / 1e3),
+        tokens_per_s=served / ((prefill_ms + sum(step_ms)) / 1e3),
+        launches=launches)
+
+    checks, timings = path["hold"](torch, arch, captured)
     report["kernel_checks"] = checks
 
-    # the same weights through the reference's einsum route
-    ref_model = get_model(replace(cfg, use_pallas=False), device=DEVICE)
+    # the same weights through the reference's plain route (einsum experts,
+    # chunked scans)
+    ref_cfg = replace(cfg, use_pallas=False)
     ref_toks, ref_rows, ref_prefill_ms, ref_step_ms = generate(
-        torch, ref_model, params, prompt, LM_NEW)
+        torch, get_model(ref_cfg, device=DEVICE), params, prompt, LM_NEW)
     d_prefill = float((rows[:, 0] - ref_rows[:, 0]).abs().max())
-    agree = toks == ref_toks
+    agree = (toks == ref_toks).cpu().numpy()
     top2 = rows.topk(2, dim=-1).values
     margin = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-    agree_np = agree.cpu().numpy()
     excused = parted = 0
     shared_dev = 0.0
     for b in range(LM_BATCH):
-        off = np.flatnonzero(~agree_np[b])
+        off = np.flatnonzero(~agree[b])
         t0_ = int(off[0]) if off.size else LM_NEW
         # logits on identical contexts: every step up to the first parting
         upto = min(t0_ + 1, LM_NEW)
@@ -960,37 +1156,35 @@ def lm_phase(torch):
             (rows[b, :upto] - ref_rows[b, :upto]).abs().max()))
         if off.size:
             parted += 1
-            if margin[b, t0_] >= 2 * d_prefill:
-                fail(f"lm: sequence {b} parts from the einsum route at step "
-                     f"{t0_} with a top-1/top-2 margin {margin[b, t0_]:.4g} "
-                     f">= 2 x prefill max|dlogits| {2 * d_prefill:.4g}")
+            if path["gate_parting"] and margin[b, t0_] >= 2 * d_prefill:
+                fail(f"{arch}: sequence {b} parts from the plain route at "
+                     f"step {t0_} with a top-1/top-2 margin "
+                     f"{margin[b, t0_]:.4g} >= 2 x prefill max|dlogits| "
+                     f"{2 * d_prefill:.4g}")
             excused += int(off.size)
-    scale = float(ref_rows[:, 0].abs().max())
-    report["einsum_route"] = dict(
+    report["plain_route"] = dict(
         prefill_max_abs_dlogits=d_prefill,
-        prefill_rel_dlogits=d_prefill / scale,
+        prefill_rel_dlogits=d_prefill / float(ref_rows[:, 0].abs().max()),
         shared_context_max_abs_dlogits=shared_dev,
-        tokens_agree=int(agree_np.sum()), tokens=served,
-        sequences_parted=parted,
-        disagreements_after_small_margin=excused,
-        prefill_ms=ref_prefill_ms,
+        tokens_agree=int(agree.sum()), tokens=served,
+        sequences_parted=parted, disagreements_after_parting=excused,
+        parting_gated=path["gate_parting"], prefill_ms=ref_prefill_ms,
         decode_ms_p50=float(np.percentile(ref_step_ms, 50)))
 
     # layer by layer on the same inputs: the two routes differ only in the
-    # expert MLP, so each layer's update must agree to bf16 rounding
-    pre, dec = layerwise(torch, cfg, replace(cfg, use_pallas=False), params,
-                         prompt)
+    # kernels' work, so each layer's update must agree to rounding
+    pre, dec = layerwise(torch, cfg, ref_cfg, params, prompt)
     report["layerwise_update_rel_dev"] = dict(
         prefill_max=max(pre), decode_max=max(dec), prefill=pre, decode=dec)
     worst = max(pre + dec)
     if worst > LAYER_TOL:
-        fail(f"lm: a layer's update differs between the kernel and einsum "
+        fail(f"{arch}: a layer's update differs between the kernel and plain "
              f"routes by {worst:.3g} of its norm (> {LAYER_TOL})")
     report["one_ulp_sensitivity"] = sensitivity(torch, cfg, params, prompt)
     report["decode_profile"] = profile_decode(torch, model, params, prompt)
-    del params
+    del params, captured
     torch.cuda.empty_cache()
-    return launches, timings, max_err, report
+    return launches, timings, report
 
 
 def main() -> None:
@@ -1012,7 +1206,8 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    sources = ("score_fuse", "pool_scan", "stats_update", "moe_gmm")
+    sources = ("score_fuse", "pool_scan", "stats_update", "moe_gmm",
+               "rwkv6_scan", "rglru_scan")
     _build.build(*sources)
     print(f"built {' + '.join(f'{n}.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1043,14 +1238,13 @@ def main() -> None:
             launches["stats_update"] = ingest_launches["stats_update"]
             timings["stats_update"] = ingest["b3"]
 
-    t0 = time.perf_counter()
-    lm_launches, lm_timings, lm_err, lm = lm_phase(torch)
-    lm["phase_s"] = time.perf_counter() - t0
-    print("lm: " + json.dumps({**lm, "kernel_times": lm_timings}))
-    launches.update(lm_launches)
-    for name, shapes in lm_timings.items():
-        timings[name] = {**shapes["decode"], "max_abs_err": lm_err[name],
-                         "shapes": shapes}
+    for arch in LM_ARCHS:
+        t0 = time.perf_counter()
+        lm_launches, lm_timings, lm = lm_phase(torch, arch)
+        lm["phase_s"] = time.perf_counter() - t0
+        print(f"{arch}: " + json.dumps({**lm, "kernel_times": lm_timings}))
+        launches.update(lm_launches)
+        timings.update(lm_timings)
 
     meta = {"score_fuse": ("cuda", "src/repro_torch/csrc/score_fuse.cu",
                            "src/repro/kernels/score_fuse.py:189"),
@@ -1061,7 +1255,11 @@ def main() -> None:
             "moe_gmm": ("cuda", "src/repro_torch/csrc/moe_gmm.cu",
                         "src/repro/kernels/moe_gmm.py:23"),
             "moe_gmm_down": ("cuda", "src/repro_torch/csrc/moe_gmm.cu",
-                             "src/repro/kernels/moe_gmm.py:78")}
+                             "src/repro/kernels/moe_gmm.py:78"),
+            "rwkv6_scan": ("cuda", "src/repro_torch/csrc/rwkv6_scan.cu",
+                           "src/repro/kernels/rwkv6_scan.py:22"),
+            "rglru_scan": ("cuda", "src/repro_torch/csrc/rglru_scan.cu",
+                           "src/repro/kernels/rglru_scan.py:19")}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         t = {"library_ms": None, **timings[name]}

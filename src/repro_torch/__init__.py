@@ -7,8 +7,10 @@ runs on the card through two hand-written CUDA kernels,
 ``kernels.score_fuse`` (Eq. 2-4) and ``kernels.pool_scan`` (Algorithm 1),
 built from ``csrc/`` on first use.  Live ingestion (``stream``) updates
 the statistics through ``kernels.stats_update``, and LM serving
-(``models``: DeepSeek-V2-Lite prefill and decode) runs its MoE expert
-MLPs through ``kernels.moe_gmm``.  Entry points run on CUDA unless the
+(``models``: prefill and decode) runs DeepSeek-V2-Lite's MoE expert MLPs
+through ``kernels.moe_gmm``, RWKV6's WKV6 scan through
+``kernels.rwkv6_scan`` and RecurrentGemma's RG-LRU scan through
+``kernels.rglru_scan``.  Entry points run on CUDA unless the
 caller passes ``device="cpu"``, which takes the kernels' plain PyTorch
 versions.
 """

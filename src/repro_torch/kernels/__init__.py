@@ -10,6 +10,10 @@ PyTorch versions beside them.
 - moe_gmm    : MoE grouped expert matmuls over (E, C, D) capacity buffers
                (kernels B7 and B8, replace ``repro.kernels.moe_gmm``'s
                ``_gmm_up_kernel`` and ``_gmm_down_kernel``)
+- rwkv6_scan : the chunked WKV6 scan of RWKV6's prefill (kernel B5,
+               replaces ``repro.kernels.rwkv6_scan._wkv_kernel``)
+- rglru_scan : the chunked RG-LRU recurrence of RecurrentGemma's prefill
+               (kernel B6, replaces ``repro.kernels.rglru_scan._rglru_kernel``)
 
 CPU tensors take the plain version, CUDA tensors the kernel; ``_build``
 compiles ``csrc/*.cu`` with nvcc on first use.

@@ -1,19 +1,21 @@
-"""Attention: DeepSeek MLA over the shared attention core.
+"""Attention: GQA/MQA (+bias/qk_norm/window) and DeepSeek MLA.
 
-PyTorch counterpart of the MLA half of ``repro.models.attention``.  The
+PyTorch counterpart of ``repro.models.attention`` for self-attention.  The
 core is the reference's: direct softmax attention for short keys and
 decode, and above ``2 * kv_chunk`` keys the KV-chunked online-softmax scan
 (`_chunked_attend`, a Python loop over chunks in place of ``lax.scan``).
-The flash-attention kernel branch of :func:`attend` and the GQA module come
-with kernel B4's slice; until then :func:`attend` raises where the
-reference would take its flash branch.
+Serving always passes ``kv_valid``, so it never reaches the reference's
+flash-attention kernel (B4); that branch of :func:`attend` comes with the
+training slice and raises until then.  Caches are written in place.
+Cross-attention (encoder-decoder models) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
-from .layers import apply_rope, constrain, rmsnorm, rope_angles
+from .layers import (apply_rope, constrain, rmsnorm, rope_angles,
+                     tp_project_rs)
 from .param import ParamSpec
 
 NEG_INF = -1e30
@@ -92,6 +94,86 @@ def attend(q, k, v, qpos, kpos, *, causal=True, window=0, kv_valid=None,
                               kv_valid=kv_valid, scale=scale)
     return _chunked_attend(q, k, v, qpos, kpos, causal=causal, window=window,
                            kv_valid=kv_valid, scale=scale, kv_chunk=kv_chunk)
+
+
+# ---------------------------------------------------------------------------
+# GQA / MQA module
+# ---------------------------------------------------------------------------
+
+def gqa_specs(cfg: ModelConfig) -> dict:
+    D, H, KV, Dh = cfg.d_model, cfg.padded_heads, cfg.kv_heads_effective, cfg.head_dim
+    s = {
+        "wq": ParamSpec((D, H, Dh), ("embed", "heads", "head_dim")),
+        "wk": ParamSpec((D, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamSpec((D, KV, Dh), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamSpec((H, Dh, D), ("heads", "head_dim", "embed"),
+                        fan_in_axes=(0, 1)),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamSpec((H, Dh), ("heads", "head_dim"), init="zeros")
+        s["bk"] = ParamSpec((KV, Dh), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = ParamSpec((KV, Dh), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((Dh,), ("head_dim",), dtype=torch.float32,
+                                init="ones")
+        s["k_norm"] = ParamSpec((Dh,), ("head_dim",), dtype=torch.float32,
+                                init="ones")
+    return s
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
+    KV, Dh = cfg.kv_heads_effective, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, max_len, KV, Dh), dtype=torch.bfloat16,
+                         device=device),
+        "v": torch.zeros((batch, max_len, KV, Dh), dtype=torch.bfloat16,
+                         device=device),
+    }
+
+
+def apply_gqa(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+              positions: torch.Tensor, cache: dict | None = None,
+              cache_index: int | None = None, kv_valid=None, window: int = 0):
+    """Causal self-attention with grouped K/V heads and rope.  Returns
+    (output, cache).
+
+    With ``cache``, K/V are written at ``cache_index`` in place and
+    attention runs against the whole cache (``kv_valid`` masks the unwritten
+    rows); the same dict is returned.
+    """
+    H, KV, Dh = cfg.padded_heads, cfg.kv_heads_effective, cfg.head_dim
+
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"]
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    if "q_norm" in p:
+        q = rmsnorm(p["q_norm"], q, cfg.rms_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.rms_eps)
+    cos, sin = rope_angles(positions, Dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    if cache is not None:
+        idx = 0 if cache_index is None else int(cache_index)
+        Sq = q.shape[1]
+        cache["k"][:, idx:idx + Sq] = k.to(torch.bfloat16)
+        cache["v"][:, idx:idx + Sq] = v.to(torch.bfloat16)
+        k, v = cache["k"], cache["v"]
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+
+    G = H // KV
+    B, Sq = q.shape[0], q.shape[1]
+    qg = q.reshape(B, Sq, KV, G, Dh)
+    qpos = positions[0] if positions.dim() == 2 else positions
+    out = attend(qg, k, v, qpos, kpos, causal=True, window=window,
+                 kv_valid=kv_valid, kv_chunk=cfg.attn_chunk,
+                 use_pallas=cfg.use_pallas)
+    out = out.reshape(B, Sq, H, Dh)
+    return tp_project_rs(out, p["wo"], cfg, contract_model_dims=2), cache
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ come with the sharding item (ROADMAP A.6, A.9).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .param import ParamSpec
@@ -78,6 +80,17 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     after each; ``F.silu`` rounds once, and often lands on another bf16
     value.)"""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh form) as the reference evaluates
+    it: ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x^3)))`` with the
+    constants rounded to ``x``'s dtype and every op rounded to it (jitted
+    XLA rounds a bf16 graph after each op, as for :func:`silu`)."""
+    const = lambda v: torch.full((), v, dtype=torch.float32,  # noqa: E731
+                                 device=x.device).to(x.dtype)
+    inner = const(math.sqrt(2.0 / math.pi)) * (x + const(0.044715) * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def swiglu_hidden(h: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor) -> torch.Tensor:

@@ -6,14 +6,15 @@ PyTorch counterpart of ``repro.models.lm`` for the serving path
     prefix layers   — unrolled (e.g. DeepSeek's first dense layer)
     unit            — ``num_units`` repeats of ``block_pattern``, parameters
                       stacked on a leading "layers" axis
-    suffix layers   — unrolled remainder
+    suffix layers   — unrolled remainder (e.g. RecurrentGemma's last two)
 
-The reference scans the unit with ``lax.scan``; here a Python loop walks
-the stacked axis (each step a view of one unit's parameters and cache).
-Caches are written in place.  Ported so far: the ``attn`` kind with MLA,
-and dense or MoE FFNs.  The ``rwkv`` and ``rglru`` kinds, GQA attention,
-windowed caches and prefix embeddings raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+Each layer is a pre-norm mixing block (``attn`` — MLA, or GQA with a ring
+cache when the config has a window — ``rwkv`` or ``rglru``) and a pre-norm
+FFN block (dense MLP or MoE).  The reference scans the unit with
+``lax.scan``; here a Python loop walks the stacked axis (each step a view of
+one unit's parameters and cache).  Caches are written in place.  Prefix
+embeddings (modality frontends) raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,47 +26,37 @@ import torch
 from ..configs.base import ModelConfig
 from . import attention as attn_lib
 from . import moe as moe_lib
-from .layers import (constrain, mlp_specs, rmsnorm, rmsnorm_spec,
-                     swiglu_hidden, tp_project_rs)
+from . import rglru as rglru_lib
+from . import rwkv6 as rwkv_lib
+from .layers import (apply_rope, constrain, mlp_specs, rmsnorm, rmsnorm_spec,
+                     rope_angles, swiglu_hidden, tp_project_rs)
 from .param import ParamSpec, tree_map
-
-_NOT_YET = {
-    "rwkv": "the rwkv kind comes with kernel B5's slice (ROADMAP B.5)",
-    "rglru": "the rglru kind comes with kernel B6's slice (ROADMAP B.6)",
-    "gqa": "GQA attention comes with kernel B4's slice (ROADMAP B.4)",
-    "window": "windowed attention caches come with kernel B6's slice "
-              "(ROADMAP B.6)",
-    "prefix": "prefix embeddings (vision/audio frontends) are not ported yet "
-              "(ROADMAP A.9)",
-}
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is what this slice ports: ``attn`` layers with
-    MLA and no window (dense or MoE FFNs)."""
-    for kind in cfg.block_pattern:
-        if kind != "attn":
-            raise (NotImplementedError(_NOT_YET[kind]) if kind in _NOT_YET
-                   else ValueError(kind))
-    if not cfg.mla:
-        raise NotImplementedError(_NOT_YET["gqa"])
-    if cfg.window:
-        raise NotImplementedError(_NOT_YET["window"])
-
 
 # ---------------------------------------------------------------------------
 # structure
 # ---------------------------------------------------------------------------
 
+def _layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    return cfg.block_pattern[layer_idx % cfg.repeat_unit]
+
+
 def _is_moe_layer(cfg: ModelConfig, layer_idx: int) -> bool:
     return cfg.moe is not None and layer_idx >= cfg.moe.first_dense_layers
 
 
-def _layer_specs(cfg: ModelConfig, moe_layer: bool) -> dict:
+def _layer_specs(cfg: ModelConfig, kind: str, moe_layer: bool) -> dict:
     D = cfg.d_model
-    return {"ln1": rmsnorm_spec(D), "ln2": rmsnorm_spec(D),
-            "mix": attn_lib.mla_specs(cfg),
-            "ffn": moe_lib.moe_specs(cfg) if moe_layer else mlp_specs(D, cfg.d_ff)}
+    s: dict[str, Any] = {"ln1": rmsnorm_spec(D), "ln2": rmsnorm_spec(D)}
+    if kind == "attn":
+        s["mix"] = attn_lib.mla_specs(cfg) if cfg.mla else attn_lib.gqa_specs(cfg)
+    elif kind == "rwkv":
+        s["mix"] = rwkv_lib.rwkv_specs(cfg)
+    elif kind == "rglru":
+        s["mix"] = rglru_lib.rglru_specs(cfg)
+    else:
+        raise ValueError(kind)
+    s["ffn"] = moe_lib.moe_specs(cfg) if moe_layer else mlp_specs(D, cfg.d_ff)
+    return s
 
 
 def _stack(structure, n: int):
@@ -88,7 +79,6 @@ def _partition(cfg: ModelConfig):
 
 
 def structure(cfg: ModelConfig) -> dict:
-    _check_supported(cfg)
     D, V = cfg.d_model, cfg.padded_vocab
     prefix, scanned, suffix, U = _partition(cfg)
     s: dict[str, Any] = {
@@ -97,12 +87,15 @@ def structure(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((V, D), ("vocab", "embed"))
-    s["prefix"] = [_layer_specs(cfg, _is_moe_layer(cfg, i)) for i in prefix]
+    s["prefix"] = [_layer_specs(cfg, _layer_kind(cfg, i), _is_moe_layer(cfg, i))
+                   for i in prefix]
     if U > 0:
-        unit = {f"b{j}": _layer_specs(cfg, _is_moe_layer(cfg, scanned[0] + j))
+        unit = {f"b{j}": _layer_specs(cfg, _layer_kind(cfg, scanned[0] + j),
+                                      _is_moe_layer(cfg, scanned[0] + j))
                 for j in range(cfg.repeat_unit)}
         s["unit"] = _stack(unit, U)
-    s["suffix"] = [_layer_specs(cfg, _is_moe_layer(cfg, i)) for i in suffix]
+    s["suffix"] = [_layer_specs(cfg, _layer_kind(cfg, i), _is_moe_layer(cfg, i))
+                   for i in suffix]
     return s
 
 
@@ -110,15 +103,36 @@ def structure(cfg: ModelConfig) -> dict:
 # caches
 # ---------------------------------------------------------------------------
 
+def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                 device=None):
+    if kind == "attn":
+        if cfg.mla:
+            return attn_lib.init_mla_cache(cfg, batch, max_len, device)
+        length = min(max_len, cfg.window) if cfg.window else max_len
+        c = attn_lib.init_kv_cache(cfg, batch, length, device)
+        if cfg.window:
+            # the ring's slot positions; -2^30 marks a slot never written
+            c["pos"] = torch.full((length,), -(2 ** 30), dtype=torch.int32,
+                                  device=device)
+        return c
+    if kind == "rwkv":
+        return rwkv_lib.init_rwkv_state(cfg, batch, device)
+    if kind == "rglru":
+        return rglru_lib.init_rglru_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
-    """The MLA latent caches, mirroring the parameter tree."""
-    _check_supported(cfg)
+    """Per-layer caches mirroring the parameter tree: MLA latents, K/V (a
+    ring of ``min(max_len, window)`` slots under a window), or the
+    recurrent states."""
     prefix, scanned, suffix, U = _partition(cfg)
-    layer = lambda: attn_lib.init_mla_cache(cfg, batch, max_len, device)  # noqa: E731
-    cache: dict[str, Any] = {"prefix": [layer() for _ in prefix],
-                             "suffix": [layer() for _ in suffix]}
+    layer = lambda i: _layer_cache(cfg, _layer_kind(cfg, i), batch,  # noqa: E731
+                                   max_len, device)
+    cache: dict[str, Any] = {"prefix": [layer(i) for i in prefix],
+                             "suffix": [layer(i) for i in suffix]}
     if U > 0:
-        unit = {f"b{j}": layer() for j in range(cfg.repeat_unit)}
+        unit = {f"b{j}": layer(scanned[0] + j) for j in range(cfg.repeat_unit)}
         cache["unit"] = tree_map(
             lambda x: x[None].expand((U,) + x.shape).contiguous(), unit)
     return cache
@@ -128,11 +142,67 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
 # layer application
 # ---------------------------------------------------------------------------
 
-def _apply_layer(cfg, moe_layer, p, x, positions, cache, cache_index, kv_valid):
-    h = rmsnorm(p["ln1"], x, cfg.rms_eps)
-    mix, new_cache = attn_lib.apply_mla(cfg, p["mix"], h, positions=positions,
-                                        cache=cache, cache_index=cache_index,
-                                        kv_valid=kv_valid)
+def _window_cache_write(cfg, cache, k, v, positions):
+    """Ring-buffer write for local attention, in place; returns (cache,
+    k_all, v_all, kpos)."""
+    W = cache["k"].shape[1]
+    S = k.shape[1]
+    if S > W:
+        k, v, positions = k[:, -W:], v[:, -W:], positions[:, -W:]
+    slots = (positions[0] % W).long()
+    cache["k"][:, slots] = k.to(torch.bfloat16)
+    cache["v"][:, slots] = v.to(torch.bfloat16)
+    cache["pos"][slots] = positions[0].to(torch.int32)
+    return cache, cache["k"], cache["v"], cache["pos"]
+
+
+def _apply_attn(cfg, p, x, positions, cache, cache_index, kv_valid):
+    if cfg.mla:
+        return attn_lib.apply_mla(cfg, p, x, positions=positions, cache=cache,
+                                  cache_index=cache_index, kv_valid=kv_valid)
+    window = cfg.window
+    if cache is not None and window:
+        # local attention with a ring cache: project, rope, then ring write
+        H, KV, Dh = cfg.padded_heads, cfg.kv_heads_effective, cfg.head_dim
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        cos, sin = rope_angles(positions, Dh, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        cache, k_all, v_all, kpos = _window_cache_write(cfg, cache, k, v,
+                                                        positions)
+        B, Sq = q.shape[0], q.shape[1]
+        qg = q.reshape(B, Sq, KV, H // KV, Dh)
+        out = attn_lib.attend(qg, k_all, v_all, positions[0], kpos,
+                              causal=True, window=window, kv_valid=kv_valid,
+                              kv_chunk=cfg.attn_chunk)
+        y = torch.einsum("bshk,hkd->bsd", out.reshape(B, Sq, H, Dh), p["wo"])
+        return y, cache
+    return attn_lib.apply_gqa(cfg, p, x, positions=positions, cache=cache,
+                              cache_index=cache_index, kv_valid=kv_valid,
+                              window=window)
+
+
+def _apply_layer(cfg, kind, moe_layer, p, x, positions, cache, cache_index,
+                 kv_valid, decode, x_norm=None):
+    """One layer.  Returns ``(x, cache, aux, x_sum)``: the bf16 residual
+    stream, the cache (written in place), the MoE auxiliary loss, and the
+    float32 sum that ``x`` rounds (what a fused next layer's first norm
+    reads).  ``x_norm`` is the float32 value this layer's first norm reads
+    (``x`` when ``None``)."""
+    h = rmsnorm(p["ln1"], x if x_norm is None else x_norm, cfg.rms_eps,
+                dtype=x.dtype)
+    if kind == "attn":
+        mix, new_cache = _apply_attn(cfg, p["mix"], h, positions, cache,
+                                     cache_index, kv_valid)
+    elif kind == "rwkv":
+        mix, new_cache = rwkv_lib.apply_rwkv(cfg, p["mix"], h, cache,
+                                             decode=decode)
+    else:
+        mix, new_cache = rglru_lib.apply_rglru(cfg, p["mix"], h, cache,
+                                               decode=decode)
     # The reference's jitted layer adds the residual in float32 and feeds
     # that unrounded sum to the second norm (XLA fuses the add into the
     # norm's upcast); only the carried residual is rounded to bf16.
@@ -145,8 +215,8 @@ def _apply_layer(cfg, moe_layer, p, x, positions, cache, cache_index, kv_valid):
         hid = swiglu_hidden(h, p["ffn"]["w1"], p["ffn"]["w3"])
         ffn = tp_project_rs(hid, p["ffn"]["w2"], cfg, contract_model_dims=1)
         aux = 0.0
-    x = constrain(x + ffn, cfg, ("dp", "sp", None))
-    return x, new_cache, aux
+    x_sum = constrain(x.float() + ffn.float(), cfg, ("dp", "sp", None))
+    return x_sum.to(x.dtype), new_cache, aux, x_sum
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +228,8 @@ def _embed_inputs(cfg, params, tokens, prefix_embeds):
     multiplies (sqrt(2048) = 45.2548 becomes 45.25): a bf16 tensor, since
     ``bf16_tensor * python_float`` would multiply by the float32 value."""
     if prefix_embeds is not None:
-        raise NotImplementedError(_NOT_YET["prefix"])
+        raise NotImplementedError("prefix embeddings (vision/audio frontends) "
+                                  "are not ported yet (ROADMAP A.9)")
     emb = params["embed"]
     scale = torch.full((), math.sqrt(float(cfg.d_model)), dtype=torch.float32,
                        device=emb.device).to(torch.bfloat16)
@@ -170,39 +241,59 @@ def _logits(cfg, params, x):
     return torch.einsum("bsd,vd->bsv", x, head)
 
 
-def _run_stack(cfg, params, x, positions, caches, cache_index, kv_valid):
+def _run_stack(cfg, params, x, positions, caches, cache_index, kv_valid,
+               decode):
+    """The layer stack and the final norm.
+
+    The reference's jitted stack rounds as XLA fuses it, and the port
+    follows: inside one scanned unit, and along the unrolled suffix into
+    the final norm, the residual sum a layer ends with feeds the next first
+    norm unrounded (only the carried residual is rounded to bf16); the
+    scan's carry, and so the input of each unit and of the first suffix
+    layer, is the rounded bf16 stream.
+    """
     prefix, scanned, suffix, U = _partition(cfg)
     aux_total = 0.0
     new_caches: dict[str, Any] = {"prefix": [], "suffix": []}
 
     for n, i in enumerate(prefix):
         c = caches["prefix"][n] if caches else None
-        x, nc, aux = _apply_layer(cfg, _is_moe_layer(cfg, i), params["prefix"][n],
-                                  x, positions, c, cache_index, kv_valid)
+        x, nc, aux, _ = _apply_layer(cfg, _layer_kind(cfg, i),
+                                     _is_moe_layer(cfg, i), params["prefix"][n],
+                                     x, positions, c, cache_index, kv_valid,
+                                     decode)
         new_caches["prefix"].append(nc)
         aux_total = aux_total + aux
 
     if U > 0:
+        kinds = [_layer_kind(cfg, scanned[0] + j) for j in range(cfg.repeat_unit)]
         moes = [_is_moe_layer(cfg, scanned[0] + j) for j in range(cfg.repeat_unit)]
         for u in range(U):
             p_u = tree_map(lambda a: a[u], params["unit"])
             c_u = tree_map(lambda a: a[u], caches["unit"]) if caches else None
-            for j, moe_l in enumerate(moes):
+            x_sum = None
+            for j, (kind, moe_l) in enumerate(zip(kinds, moes)):
                 c = c_u[f"b{j}"] if c_u is not None else None
-                x, _, a = _apply_layer(cfg, moe_l, p_u[f"b{j}"], x, positions,
-                                       c, cache_index, kv_valid)
+                x, _, a, x_sum = _apply_layer(cfg, kind, moe_l, p_u[f"b{j}"], x,
+                                              positions, c, cache_index,
+                                              kv_valid, decode, x_norm=x_sum)
                 aux_total = aux_total + a
         # the unit caches were written in place through the views
         new_caches["unit"] = caches["unit"] if caches else None
 
+    x_sum = None
     for n, i in enumerate(suffix):
         c = caches["suffix"][n] if caches else None
-        x, nc, aux = _apply_layer(cfg, _is_moe_layer(cfg, i), params["suffix"][n],
-                                  x, positions, c, cache_index, kv_valid)
+        x, nc, aux, x_sum = _apply_layer(cfg, _layer_kind(cfg, i),
+                                         _is_moe_layer(cfg, i),
+                                         params["suffix"][n], x, positions, c,
+                                         cache_index, kv_valid, decode,
+                                         x_norm=x_sum)
         new_caches["suffix"].append(nc)
         aux_total = aux_total + aux
 
-    x = rmsnorm(params["final_norm"], x, cfg.rms_eps)
+    x = rmsnorm(params["final_norm"], x if x_sum is None else x_sum,
+                cfg.rms_eps, dtype=x.dtype)
     return x, new_caches, aux_total
 
 
@@ -212,11 +303,11 @@ def prefill(cfg: ModelConfig, params, tokens, cache, prefix_embeds=None):
 
     The cache is written in place; the returned dict is the same one.
     """
-    _check_supported(cfg)
     x = _embed_inputs(cfg, params, tokens, prefix_embeds)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    x, new_cache, _ = _run_stack(cfg, params, x, positions, cache, 0, S)
+    x, new_cache, _ = _run_stack(cfg, params, x, positions, cache, 0, S,
+                                 decode=False)
     return _logits(cfg, params, x[:, -1:]), new_cache
 
 
@@ -224,12 +315,11 @@ def prefill(cfg: ModelConfig, params, tokens, cache, prefix_embeds=None):
 def decode_step(cfg: ModelConfig, params, token, cache, index):
     """One decode step.  token: (B, 1) integer ids; index: the position
     (an int or a 0-dim tensor).  Writes the cache in place."""
-    _check_supported(cfg)
     index = int(index)
     x = _embed_inputs(cfg, params, token, None)
     B = x.shape[0]
     positions = torch.full((B, 1), index, dtype=torch.int32, device=x.device)
     x, new_cache, _ = _run_stack(cfg, params, x, positions, cache, index,
-                                 index + 1)
+                                 index + 1, decode=True)
     return _logits(cfg, params, x), new_cache
 

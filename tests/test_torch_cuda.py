@@ -9,7 +9,10 @@ Kernels B1-B3 are built with ``--fmad=false`` and keep the plain
 version's op order, so their outputs must be bit-identical.  B7/B8 (the
 MoE grouped matmuls) sum in the tensor cores' order, so every element must
 lie within one bf16 ulp of the plain version's float32 einsum, or within
-1e-3 * max|plain|.
+1e-3 * max|plain|.  B5 (the WKV6 scan) sums its chunk's cumsum and
+contractions in another order than the plain version: outputs and states
+within 1e-4 * max|plain|.  B6 (the RG-LRU scan) keeps the plain version's
+doubling order and is built with ``--fmad=false``: bit-identical.
 """
 import dataclasses
 
@@ -26,6 +29,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import pool_scan as tps
 from repro_torch.kernels import score_fuse as tsf
 from repro_torch.kernels import moe_gmm as tgmm
+from repro_torch.kernels import rglru_scan as trg
+from repro_torch.kernels import rwkv6_scan as twkv
 from repro_torch.kernels import stats_update as tsu
 from repro_torch.parallel import compression as tcomp
 from repro_torch.serve import BatchServer, DeviceArchive
@@ -261,3 +266,77 @@ def test_reduced_lm_on_the_card_matches_cpu(cuda):
     assert tgmm.moe_gmm.launches == 4          # one MoE layer x 4 forwards
     ref = lc.float()
     assert float((lg.float().cpu() - ref).abs().max()) <= 5e-2 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,D", [
+    (16, 128, 64, 64),   # rwkv6-7b's prefill at the serving shape
+    (2, 77, 3, 64),      # S not a multiple of the chunk
+    (3, 20, 2, 16),      # shorter than a chunk; the reduced model's heads
+    (1, 40, 5, 32),
+])
+def test_rwkv6_scan_kernel_matches_plain_version(cuda, B, S, H, D):
+    g = torch.Generator(device=cuda).manual_seed(B * S + H * D)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=cuda)  # noqa: E731
+    r, k, v = ((rnd(B, S, H, D) * 0.5).to(torch.bfloat16) for _ in range(3))
+    log_w = -torch.exp(rnd(B, S, H, D) * 0.5 - 2.0)
+    u, s0 = rnd(H, D) * 0.5, rnd(B, H, D, D) * 0.1
+    before = twkv.rwkv6_scan.launches
+    out, s_final = twkv.rwkv6_scan(r, k, v, log_w, u, s0)
+    torch.cuda.synchronize()
+    assert twkv.rwkv6_scan.launches == before + 1
+    p_out, p_s = twkv.rwkv6_scan(r, k, v, log_w, u, s0, backend="torch")
+    for got, want in ((out, p_out), (s_final, p_s)):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,S,R", [
+    (16, 128, 2560),     # recurrentgemma-2b's prefill at the serving shape
+    (2, 300, 100),       # three chunks, the last padded; channel tail
+    (3, 50, 64),         # shorter than a chunk
+    (1, 1, 33),
+])
+def test_rglru_scan_kernel_matches_plain_version(cuda, B, S, R):
+    g = torch.Generator(device=cuda).manual_seed(B * S + R)
+    log_a = -torch.rand((B, S, R), generator=g, device=cuda) * 2.0
+    x_in = torch.randn((B, S, R), generator=g, device=cuda)
+    h0 = torch.randn((B, R), generator=g, device=cuda)
+    before = trg.rglru_scan.launches
+    hs, h_last = trg.rglru_scan(log_a, x_in, h0)
+    torch.cuda.synchronize()
+    assert trg.rglru_scan.launches == before + 1
+    p_hs, p_last = trg.rglru_scan(log_a, x_in, h0, backend="torch")
+    assert _same(hs, p_hs) and _same(h_last, p_last)
+
+
+@pytest.mark.parametrize("arch,counter", [
+    ("rwkv6-7b", twkv.rwkv6_scan), ("recurrentgemma-2b", trg.rglru_scan)],
+    ids=["rwkv6", "recurrentgemma"])
+def test_reduced_recurrent_lm_on_the_card_matches_cpu(cuda, arch, counter):
+    """The reduced recurrent models served on the card (B5 or B6 launched
+    in every recurrent layer's prefill) against the same weights on the
+    CPU, past the reduced window."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models.param import tree_map
+    cfg = dataclasses.replace(get_config(arch).reduced(), use_pallas=True)
+    gpu, cpu = get_model(cfg, device=cuda), get_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gparams = tree_map(lambda t: t.to(cuda), params)
+    prompt = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40)))
+    gc, cc = gpu.init_cache(2, 44), cpu.init_cache(2, 44)
+    counter.launches = 0
+    lg, gc = gpu.prefill(gparams, {"tokens": prompt.to(cuda)}, gc)
+    lc, cc = cpu.prefill(params, {"tokens": prompt}, cc)
+    n_rec = sum(k != "attn" for k in cfg.block_pattern) * cfg.num_units
+    assert counter.launches == n_rec           # prefill only; decode is inline
+    ref = lc.float()
+    assert float((lg.float().cpu() - ref).abs().max()) <= 5e-2 * float(ref.abs().max())
+    tok = ref[:, -1].argmax(-1, keepdim=True)
+    for i in range(3):
+        a, gc = gpu.decode_step(gparams, tok.to(cuda), gc, 40 + i)
+        b, cc = cpu.decode_step(params, tok, cc, 40 + i)
+        ref = b.float()
+        assert float((a.float().cpu() - ref).abs().max()) <= 5e-2 * float(ref.abs().max())
+        tok = ref[:, -1].argmax(-1, keepdim=True)
+    assert counter.launches == n_rec

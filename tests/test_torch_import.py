@@ -43,7 +43,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.configs.registry", "repro_torch.models",
            "repro_torch.models.param", "repro_torch.models.layers",
            "repro_torch.models.attention", "repro_torch.models.moe",
-           "repro_torch.models.lm", "repro_torch.models.api"]
+           "repro_torch.models.lm", "repro_torch.models.api",
+           "repro_torch.kernels.rwkv6_scan", "repro_torch.kernels.rglru_scan",
+           "repro_torch.models.rwkv6", "repro_torch.models.rglru"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
@@ -102,8 +104,10 @@ def _tiny_candidates() -> CandidateSet:
     lambda: DeviceArchive.stage(_tiny_candidates()),
     lambda: get_model(get_config("deepseek-v2-lite-16b")),
     lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
+    lambda: get_model(get_config("rwkv6-7b")),
+    lambda: get_model(get_config("recurrentgemma-2b")),
 ], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage",
-        "model", "params"])
+        "model", "params", "model-rwkv6", "model-recurrentgemma"])
 def test_default_device_raises_without_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -355,12 +355,20 @@ def test_whole_model_greedy_tokens_match_reference(served):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="B.5"):
-        torch_model(torch_config("rwkv6-7b").reduced(), device="cpu").structure()
+    # the flash-attention kernel B4: reached only without a cache (training)
+    q = torch.zeros((1, 4, 1, 1, 8), dtype=torch.bfloat16)
+    k = torch.zeros((1, 4, 1, 8), dtype=torch.bfloat16)
+    pos = torch.arange(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="B.4"):
-        torch_model(torch_config("qwen2-0.5b").reduced(), device="cpu").structure()
-    with pytest.raises(NotImplementedError):
-        torch_model(torch_config("seamless-m4t-medium").reduced(), device="cpu")
+        tattn.attend(q, k, k, pos, pos, use_pallas=True)
+    # encoder-decoder models, modality frontends and prefix embeddings
+    for arch in ("seamless-m4t-medium", "llava-next-mistral-7b"):
+        with pytest.raises(NotImplementedError, match="A.9"):
+            torch_model(torch_config(arch).reduced(), device="cpu")
     _, ct = _cfgs()
+    tokens = torch.zeros((1, 2), dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="A.9"):
+        tlm._embed_inputs(ct, {"embed": torch.zeros((8, 64))}, tokens,
+                          torch.zeros((1, 3, 64)))
     with pytest.raises(NotImplementedError, match="training slice"):
         torch_model(ct, device="cpu").forward({}, {})
