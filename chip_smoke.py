@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, live-ingest and LM serving paths
-(DeepSeek-V2-Lite, RWKV6-7B, RecurrentGemma-2B) on one NVIDIA GPU.
+(DeepSeek-V2-Lite, RWKV6-7B, RecurrentGemma-2B), and qwen2-0.5b's
+full-sequence forward and training step, on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -64,7 +65,33 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    route's, at prefill and at a decode step.  Prints prefill and decode
    times, tokens/s, a profiled decode step, and the kernels' times and
    bounds.  Each model is freed before the next.
-6. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+6. Forward phase: ``qwen2-0.5b`` at full width and depth (24 layers,
+   d_model 896, 14 query heads over 2 KV heads of 64; 494 M parameters
+   drawn on the card), ``Model.forward(train=False)`` with
+   ``use_pallas=True`` on the first batch of ``make_pipeline(cfg, 4096,
+   8)`` (train_4k's sequence length; its batch of 256 cut to 8 to fit one
+   card).  B4 ``flash_attention`` must launch once per layer (24 times) at
+   (8, 4096, 14, 64) with 2 KV heads; it is held against its plain version
+   (one bf16 ulp or 2^-7 * max|v|) on the first layer's captured q, k, v, on
+   prefixes of 4000 and 77 rows of them, and on seeded inputs with G = 1,
+   D = 128, S = 1000; each layer's update against the plain route
+   (``use_pallas=False``, the chunked attend) and against the same layer
+   in float32, within ``FWD_LAYER_TOL`` (the random init's attention is
+   nearly a hard max; see there).
+   Prints forward p50 / p90 over 5 calls, tokens/s, a profiled forward's
+   idle share, and B4's times, bound and
+   ``scaled_dot_product_attention``'s time (timed only; the port never
+   calls it).
+7. Train phase: the same model and initial parameters through
+   ``build_train_step`` on the reference's training route
+   (``use_pallas=False``), ``TrainConfig(grad_accum=2)``, 3 steps of 8 x
+   4096 tokens from ``make_pipeline``.  Loss and gradient norm finite and
+   positive, the parameters moved, ``lr`` equal to ``lr_schedule``, B4 never
+   launched, and the first loss within 1e-2 (relative) of the
+   cross-entropy of the forward phase's B4 logits on the same batch.
+   Prints step time, tokens/s, peak memory, the model-FLOP share and a
+   profiled fourth step.
+8. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Exits non-zero without printing a result when CUDA is unavailable or when
 the ``src/repro_torch`` package is not beside this script.
@@ -114,6 +141,40 @@ LAYER_TOL = 2e-2
 # (the chunk's cumsum and contractions sum in another order), B6 bit for bit
 WKV_TOL = 1e-4
 RAGGED_S = 77          # a prompt length that is no multiple of either chunk
+
+# forward and train phases: qwen2-0.5b at full width and depth over
+# train_4k's sequence length; its global batch of 256 is cut to 8 to fit
+# one card
+FWD_ARCH = "qwen2-0.5b"
+FWD_BATCH = 8
+FWD_SEQ = 4096
+FWD_CALLS = 5          # timed forwards for p50 / p90
+FLASH_PREFIXES = (4000, RAGGED_S)   # B4 also held on these query lengths
+# B4 against its plain version: the two sum the scores in another order,
+# so an attention weight p can round to the neighbouring bf16 value before
+# the P V product, which moves an output by up to one bf16 ulp of p (2^-7
+# of p at most) times v, and so by at most 2^-7 * max|v| over the row.  On
+# the model's peaked attention that exceeds the B7/B8 contract (one ulp or
+# 1e-3 * max|out|) in a few dozen of the 29 M outputs (the forward report's
+# ``beyond_b7_b8_contract``); seeded normal inputs meet it.
+FLASH_P_ULP = 2.0 ** -7
+TRAIN_STEPS = 3
+TRAIN_ACCUM = 2
+# A layer's update through B4 may differ from the plain route's, and from
+# the same layer in float32, by this share of its norm.  The reference's
+# init takes a 3-D weight's fan-in over its heads: 14 for wq, 2 for wk and
+# wv, not the 896 inputs.  So q has a spread of 8, k and v of 21, the
+# scores of ~170, and the softmax is nearly a hard max, where any bf16
+# rounding moves the update by several percent: the plain route rounds
+# the scores to bf16 (its einsum returns bf16), B4 keeps them in float32
+# from bf16 q and k.  At full width (2-3 layers, S = 2048, on the CPU) the
+# routes differ by 6.1-6.6% of the update, B4 lies 6.2-6.8% and the plain
+# route 8.5-8.6% from float32; the forward report prints all three on the
+# card.
+FWD_LAYER_TOL = 0.1
+# the first train loss (plain attention) against the cross-entropy of the
+# B4 forward's logits on the same batch and parameters, relative
+TRAIN_CE_TOL = 1e-2
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
 # rate outside the tensor cores, dense bf16 tensor-core rate.
@@ -686,16 +747,17 @@ def profile_serve(torch, cands):
                 top=[[round(ms, 4), k] for ms, k in rows[:8]])
 
 
-def bf16_closeness(got, want):
-    """(count beyond one bf16 ulp, count beyond both one ulp and 1e-3 *
-    max|want|, max |got - want|) of two tensors on the card."""
+def bf16_closeness(got, want, floor=None):
+    """(count beyond one bf16 ulp, count beyond both one ulp and ``floor``
+    (1e-3 * max|want| when ``None``), max |got - want|) of two tensors on
+    the card."""
     import torch
     got, want = got.double(), want.double()
     mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     d = (got - want).abs()
     far = d > ulp
-    bad = far & (d > 1e-3 * want.abs().max())
+    bad = far & (d > (1e-3 * want.abs().max() if floor is None else floor))
     return int(far.sum()), int(bad.sum()), float(d.max())
 
 
@@ -755,34 +817,43 @@ def gmm_times(torch, gmm, name, args, c_rows):
 
 
 def _layer_stack(cfg, params, cache):
-    """(kind, moe, params, cache) of every layer in order, as views."""
+    """(kind, moe, params, cache) of every layer in order, as views (the
+    cache ``None`` for every layer when ``cache`` is ``None``)."""
     from repro_torch.models import lm
     from repro_torch.models.param import tree_map
     prefix, scanned, suffix, U = lm._partition(cfg)
     info = lambda i: (lm._layer_kind(cfg, i), lm._is_moe_layer(cfg, i))  # noqa: E731
-    out = [(*info(i), params["prefix"][n], cache["prefix"][n])
+    part = lambda name, n: cache[name][n] if cache else None  # noqa: E731
+    out = [(*info(i), params["prefix"][n], part("prefix", n))
            for n, i in enumerate(prefix)]
     for u in range(U):
         p_u = tree_map(lambda a: a[u], params["unit"])
-        c_u = tree_map(lambda a: a[u], cache["unit"])
+        c_u = tree_map(lambda a: a[u], cache["unit"]) if cache else None
         for j in range(cfg.repeat_unit):
             i = scanned[u * cfg.repeat_unit + j]
-            out.append((*info(i), p_u[f"b{j}"], c_u[f"b{j}"]))
-    out += [(*info(i), params["suffix"][n], cache["suffix"][n])
+            out.append((*info(i), p_u[f"b{j}"], c_u[f"b{j}"] if c_u else None))
+    out += [(*info(i), params["suffix"][n], part("suffix", n))
             for n, i in enumerate(suffix)]
     return out
 
 
-def layerwise(torch, cfg, ref_cfg, params, prompt):
+def layerwise(torch, cfg, ref_cfg, params, prompt, *, cached=True,
+              exact=None):
     """Each layer's update ``out - in`` through ``cfg`` (kernels) and
     ``ref_cfg`` (the plain route) on the same input and the same starting
     cache, at prefill and at the first decode step, the stack advancing on
-    ``cfg``'s output and cache.  Returns the per-layer |update_cfg -
-    update_ref| / |update_cfg| (Frobenius norms)."""
+    ``cfg``'s output and cache.  With ``cached=False`` the walk is the
+    full-sequence forward's: no cache, every layer over the whole prompt,
+    no decode step, and each layer is also run in float32 (parameters and
+    input upcast, the plain route); each route's distance from that is
+    recorded in ``exact`` (|update - update_f32| / |update_f32|, per
+    layer: ``cfg``'s, then ``ref_cfg``'s).  Returns the per-layer
+    |update_cfg - update_ref| / |update_cfg| (Frobenius norms) at prefill
+    (or the forward) and at the decode step (empty without a cache)."""
     from repro_torch.models import lm
     from repro_torch.models.param import tree_map
     B, S = prompt.shape
-    cache = lm.init_cache(cfg, B, S + 1, prompt.device)
+    cache = lm.init_cache(cfg, B, S + 1, prompt.device) if cached else None
     stack = _layer_stack(cfg, params, cache)
 
     def walk(x, positions, index, valid, decode):
@@ -797,12 +868,21 @@ def layerwise(torch, cfg, ref_cfg, params, prompt):
                                  index, valid, decode)[0]
             upd = (xa.float() - x.float()).norm()
             devs.append(float((xa.float() - xb.float()).norm() / upd))
+            if exact is not None:
+                xf = lm._apply_layer(ref_cfg, kind, moe, tree_map(
+                    lambda t: t.float(), p), x.float(), positions, None,
+                    index, valid, decode)[0] - x.float()
+                exact.append(tuple(
+                    float((y.float() - x.float() - xf).norm() / xf.norm())
+                    for y in (xa, xb)))
             x = xa
         return x, devs
 
     with torch.no_grad():
         x = lm._embed_inputs(cfg, params, prompt, None)
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        if not cached:
+            return walk(x, pos, None, None, False)[1], []
         x, pre = walk(x, pos, 0, S, False)
         z = lm.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
         tok = lm._logits(cfg, params, z)[:, -1].argmax(-1, keepdim=True)
@@ -1187,6 +1267,318 @@ def lm_phase(torch, arch):
     return launches, timings, report
 
 
+def flash_cost(B, Sq, Sk, H, KV, D):
+    """(bytes, bf16 operations) that one causal B4 call needs: q, k and v
+    read once and the output written once; per (batch, head) the two
+    products over the causal triangle of Sq(Sq + 1)/2 (query, key) pairs
+    (``Sq == Sk``), 2D operations each."""
+    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KV * D)
+    return nbytes, 4 * B * H * (Sq * (Sq + 1) // 2) * D
+
+
+def hold_flash(torch, captured):
+    """B4 against its plain version on the first layer's q, k, v as
+    captured, on a ragged prefix (S = 4000) and a short one (S = 77) of
+    them, and on seeded inputs with G = 1, D = 128, S = 1000: every output
+    within one bf16 ulp, or within ``FLASH_P_ULP`` * max|v|.  The count
+    beyond the B7/B8 contract (one ulp or 1e-3 * max|plain|) is recorded."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = captured
+    D = q.shape[-1]
+    rng = np.random.default_rng(LM_SEED)
+    on = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
+        DEVICE).to(torch.bfloat16)
+    cases = [("captured", (q, k, v), D ** -0.5)]
+    for S in FLASH_PREFIXES:
+        cases.append((f"S={S}", tuple(t[:, :S].contiguous() for t in (q, k, v)),
+                      D ** -0.5))
+    cases.append(("G=1, D=128, S=1000",
+                  (on(rng.standard_normal((2, 1000, 8, 128))),
+                   on(rng.standard_normal((2, 1000, 8, 128))),
+                   on(rng.standard_normal((2, 1000, 8, 128)))), 128 ** -0.5))
+    checks, max_err = {}, 0.0
+    for label, args, scale in cases:
+        got = fa.flash_attention(*args, scale=scale)
+        plain = fa.flash_attention(*args, scale=scale, backend="torch")
+        torch.cuda.synchronize()
+        floor = FLASH_P_ULP * float(args[2].abs().max())
+        far, bad, err = bf16_closeness(got, plain, floor)
+        checks[label] = dict(q_shape=list(args[0].shape),
+                             kv_heads=args[1].shape[2], beyond_one_ulp=far,
+                             beyond_b7_b8_contract=bf16_closeness(got, plain)[1],
+                             max_abs_err=err, bound=floor,
+                             max_abs_plain=float(plain.abs().max()),
+                             elements=got.numel())
+        if bad or not bool(torch.isfinite(got).all()):
+            fail(f"flash_attention at {label} differs from its plain version "
+                 f"in {bad} elements beyond one bf16 ulp and {FLASH_P_ULP} x "
+                 f"max|v| = {floor:.3g} (max |d| {err:.3g})")
+        max_err = max(max_err, err)
+    return checks, max_err
+
+
+def flash_times(torch, captured):
+    """B4 alone on the captured q, k, v: device and call time, the plain
+    version's, scaled_dot_product_attention's (timed only: the port never
+    calls it) and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = captured
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    call_ms, dev_ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale),
+                              ("flash_kernel",))
+    plain_call_ms, plain_dev_ms = time_ms(
+        lambda: fa.flash_attention(q, k, v, scale=scale, backend="torch"), None)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_call_ms, lib_dev_ms = time_ms(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale),
+        None)
+    nbytes, nops = flash_cost(B, S, k.shape[1], H, k.shape[2], D)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / BF16_OPS_PER_S * 1e3
+    return dict(shape=[B, S, H, D], kv_heads=k.shape[2],
+                ms=dev_ms if dev_ms is not None else call_ms,
+                ms_source="profiler" if dev_ms is not None else "events",
+                call_ms=call_ms,
+                plain_ms=plain_dev_ms if plain_dev_ms is not None
+                else plain_call_ms,
+                plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=nops,
+                library_ms=lib_dev_ms if lib_dev_ms is not None else lib_call_ms,
+                library="scaled_dot_product_attention(is_causal=True, "
+                        "enable_gqa=True)")
+
+
+def profile_call(torch, fn):
+    """``fn()`` once under ``torch.profiler``: wall time, the device's busy
+    time and idle share, and the largest device items."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        # "Command Buffer Full" is the tracer's record of a stalled launch
+        # queue, not device work
+        if (dev_us > 0 and not evt.key.startswith("aten::")
+                and not evt.key.startswith("Command Buffer")):
+            dev.append((dev_us / 1e3, evt.key[:60]))
+    dev.sort(reverse=True)
+    busy = sum(ms for ms, _ in dev)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms if wall_ms > 0 else None,
+                device_top=[[round(ms, 4), k] for ms, k in dev[:10]])
+
+
+def batch_cross_entropy(torch, logits, labels):
+    """The port's ``cross_entropy`` over a (B, S, V) batch, one row at a
+    time (the float32 upcast of all rows at once would take 20 GB): the
+    mean of the rows' means, which is the batch mean."""
+    from repro_torch.train import cross_entropy
+    rows = [cross_entropy(logits[b:b + 1], labels[b:b + 1])
+            for b in range(logits.shape[0])]
+    return float(torch.stack(rows).mean())
+
+
+def forward_phase(torch):
+    """qwen2-0.5b's full-sequence forward at full width and depth through
+    ``Model.forward`` with ``use_pallas=True``: B4 in every layer."""
+    from dataclasses import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention, get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config(FWD_ARCH), use_pallas=True)
+    model = get_model(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    batch = make_pipeline(cfg, FWD_SEQ, FWD_BATCH, seed=0,
+                          device=DEVICE).batch(0)
+    torch.cuda.synchronize()
+    report = dict(arch=FWD_ARCH, layers=cfg.num_layers,
+                  params=model.num_params(), batch=FWD_BATCH, seq=FWD_SEQ,
+                  batch_cut="train_4k's global batch of 256 cut to 8 to fit "
+                            "one card")
+    print(f"{FWD_ARCH}: {cfg.num_layers} layers, {report['params']} "
+          f"parameters, forward of {FWD_BATCH} x {FWD_SEQ} tokens")
+
+    # warm-up forward, capturing the first layer's q, k, v
+    captured = []
+
+    def capturing(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v))
+        return fa.flash_attention(q, k, v, **kw)
+
+    attention.flash_attention = capturing
+    try:
+        with torch.no_grad():
+            model.forward(params, batch, train=False)
+    finally:
+        attention.flash_attention = fa.flash_attention
+    q, k, v = captured[0]
+    expect = (FWD_BATCH, FWD_SEQ, cfg.num_heads, cfg.head_dim)
+    if tuple(q.shape) != expect or k.shape[2] != cfg.num_kv_heads:
+        fail(f"B4 was called at {tuple(q.shape)} with {k.shape[2]} KV heads, "
+             f"not {expect} with {cfg.num_kv_heads}")
+
+    # the main path: one forward with the counter from 0
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        logits, aux = model.forward(params, batch, train=False)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    if launches != cfg.num_layers:
+        fail(f"flash_attention launched {launches} times in one forward, not "
+             f"once per layer ({cfg.num_layers})")
+    if tuple(logits.shape) != (FWD_BATCH, FWD_SEQ, cfg.vocab_size):
+        fail(f"forward gave logits of shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("non-finite logits from the forward")
+    report["cross_entropy"] = batch_cross_entropy(torch, logits,
+                                                  batch["labels"])
+    report["aux"] = float(aux)
+    del logits
+
+    forward_ms = []
+    for _ in range(FWD_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model.forward(params, batch, train=False)[0]
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    p50 = float(np.percentile(forward_ms, 50))
+    report.update(
+        launches_per_forward=launches,
+        forward_ms={"p50": p50, "p90": float(np.percentile(forward_ms, 90)),
+                    "calls": FWD_CALLS},
+        tokens_per_s=FWD_BATCH * FWD_SEQ / (p50 / 1e3),
+        peak_bytes=torch.cuda.max_memory_allocated())
+
+    checks, max_err = hold_flash(torch, captured[0])
+    report["kernel_checks"] = checks
+    timing = flash_times(torch, captured[0])
+    timing["max_abs_err"] = max_err
+    ref_cfg = replace(cfg, use_pallas=False)
+    exact = []
+    pre, _ = layerwise(torch, cfg, ref_cfg, params, batch["tokens"],
+                       cached=False, exact=exact)
+    report["layerwise_update_rel_dev"] = dict(
+        forward_max=max(pre), forward=pre,
+        b4_vs_float32=[e[0] for e in exact],
+        plain_vs_float32=[e[1] for e in exact])
+    worst = max(pre + [e[0] for e in exact])
+    if worst > FWD_LAYER_TOL:
+        fail(f"{FWD_ARCH}: a layer's update through B4 differs from the plain "
+             f"route's or the float32 layer's by {worst:.3g} of its norm "
+             f"(> {FWD_LAYER_TOL})")
+    with torch.no_grad():
+        report["forward_profile"] = profile_call(
+            torch, lambda: model.forward(params, batch, train=False))
+    del params, captured, q, k, v
+    torch.cuda.empty_cache()
+    return {"flash_attention": launches}, {"flash_attention": timing}, report
+
+
+def train_phase(torch, forward_ce: float):
+    """qwen2-0.5b trained at full width and depth through
+    ``build_train_step`` on the reference's training route
+    (``use_pallas=False``): ``TRAIN_STEPS`` steps of ``FWD_BATCH`` x
+    ``FWD_SEQ`` tokens in ``TRAIN_ACCUM`` microbatches, from the forward
+    phase's initial parameters and first batch."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_model
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.train.optim import lr_schedule
+
+    cfg = get_config(FWD_ARCH)
+    if cfg.use_pallas:
+        fail("the training route must be the plain one (use_pallas=False)")
+    model = get_model(cfg, device=DEVICE)
+    tcfg = TrainConfig(grad_accum=TRAIN_ACCUM)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(
+        model, tcfg, torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    first = {name: state.params["unit"]["b0"]["mix"][name].clone()
+             for name in ("wq", "bk")}
+    first["embed"] = state.params["embed"][:64].clone()
+    step_fn = build_train_step(model, tcfg)
+    pipe = make_pipeline(cfg, FWD_SEQ, FWD_BATCH, seed=0, device=DEVICE)
+    fa.flash_attention.launches = 0
+    losses, norms, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = pipe.batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        want_lr = float(lr_schedule(tcfg, torch.tensor(i + 1, dtype=torch.int32,
+                                                       device=DEVICE)))
+        if float(metrics["lr"]) != want_lr:
+            fail(f"train step {i}: lr {float(metrics['lr'])} is not "
+                 f"lr_schedule's {want_lr}")
+    if fa.flash_attention.launches != 0:
+        fail(f"the training route launched B4 {fa.flash_attention.launches} "
+             "times; it has no backward and must not run there")
+    if not all(np.isfinite(x) and x > 0 for x in losses + norms):
+        fail(f"train losses {losses} or gradient norms {norms} not finite "
+             "and positive")
+    moved = {name: float((state.params["unit"]["b0"]["mix"][name].float()
+                          - t.float()).norm())
+             for name, t in first.items() if name != "embed"}
+    moved["embed"] = float((state.params["embed"][:64].float()
+                            - first["embed"].float()).norm())
+    if not all(d > 0 for d in moved.values()):
+        fail(f"parameters did not move: {moved}")
+    rel = abs(losses[0] - forward_ce) / forward_ce
+    if rel > TRAIN_CE_TOL:
+        fail(f"first train loss {losses[0]:.6g} is {rel:.3g} off the B4 "
+             f"forward's cross-entropy {forward_ce:.6g} (> {TRAIN_CE_TOL})")
+    p50 = float(np.percentile(step_ms, 50))
+    tokens = FWD_BATCH * FWD_SEQ
+    batch = pipe.batch(TRAIN_STEPS)
+    holder = [state]
+
+    def one_step():
+        holder[0] = step_fn(holder[0], batch)[0]
+
+    step_profile = profile_call(torch, one_step)
+    state = holder[0]
+    report = dict(
+        arch=FWD_ARCH, steps=TRAIN_STEPS, batch=FWD_BATCH, seq=FWD_SEQ,
+        grad_accum=TRAIN_ACCUM, losses=losses, grad_norms=norms,
+        first_loss_vs_b4_forward_ce=dict(train=losses[0], forward=forward_ce,
+                                         rel=rel),
+        params_moved=moved, step_ms=step_ms, step_ms_p50=p50,
+        tokens_per_s=tokens / (p50 / 1e3),
+        peak_bytes=torch.cuda.max_memory_allocated(),
+        model_flops_share=6 * model.num_params() * tokens / (p50 / 1e3)
+        / BF16_OPS_PER_S,
+        b4_launches=fa.flash_attention.launches, step_profile=step_profile)
+    del state, holder
+    torch.cuda.empty_cache()
+    return report
+
+
 def main() -> None:
     try:
         import torch
@@ -1207,7 +1599,7 @@ def main() -> None:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     sources = ("score_fuse", "pool_scan", "stats_update", "moe_gmm",
-               "rwkv6_scan", "rglru_scan")
+               "rwkv6_scan", "rglru_scan", "flash_attention")
     _build.build(*sources)
     print(f"built {' + '.join(f'{n}.cu' for n in sources)} in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1246,6 +1638,18 @@ def main() -> None:
         launches.update(lm_launches)
         timings.update(lm_timings)
 
+    t0 = time.perf_counter()
+    fwd_launches, fwd_timings, fwd = forward_phase(torch)
+    fwd["phase_s"] = time.perf_counter() - t0
+    print(f"{FWD_ARCH} forward: " + json.dumps({**fwd,
+                                               "kernel_times": fwd_timings}))
+    launches.update(fwd_launches)
+    timings.update(fwd_timings)
+    t0 = time.perf_counter()
+    train = train_phase(torch, fwd["cross_entropy"])
+    train["phase_s"] = time.perf_counter() - t0
+    print(f"{FWD_ARCH} train: " + json.dumps(train))
+
     meta = {"score_fuse": ("cuda", "src/repro_torch/csrc/score_fuse.cu",
                            "src/repro/kernels/score_fuse.py:189"),
             "pool_scan": ("cuda", "src/repro_torch/csrc/pool_scan.cu",
@@ -1259,7 +1663,10 @@ def main() -> None:
             "rwkv6_scan": ("cuda", "src/repro_torch/csrc/rwkv6_scan.cu",
                            "src/repro/kernels/rwkv6_scan.py:22"),
             "rglru_scan": ("cuda", "src/repro_torch/csrc/rglru_scan.cu",
-                           "src/repro/kernels/rglru_scan.py:19")}
+                           "src/repro/kernels/rglru_scan.py:19"),
+            "flash_attention": ("cuda",
+                                "src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:26")}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         t = {"library_ms": None, **timings[name]}

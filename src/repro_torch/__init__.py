@@ -10,7 +10,10 @@ the statistics through ``kernels.stats_update``, and LM serving
 (``models``: prefill and decode) runs DeepSeek-V2-Lite's MoE expert MLPs
 through ``kernels.moe_gmm``, RWKV6's WKV6 scan through
 ``kernels.rwkv6_scan`` and RecurrentGemma's RG-LRU scan through
-``kernels.rglru_scan``.  Entry points run on CUDA unless the
-caller passes ``device="cpu"``, which takes the kernels' plain PyTorch
-versions.
+``kernels.rglru_scan``.  The full-sequence forward (``Model.forward``)
+runs its attention through ``kernels.flash_attention`` under
+``use_pallas``, and ``train`` trains on the plain route
+(``python -m repro_torch.launch.train``, batches from ``data``).  Entry
+points run on CUDA unless the caller passes ``device="cpu"``, which takes
+the kernels' plain PyTorch versions.
 """

@@ -5,7 +5,8 @@ columns, the (K, T) T3 window and its memoised Eq. 3 statistics.  With
 these two helpers a test or the on-card smoke run gives both packages (or
 two devices) bit-identical statistics, so that what is compared is what
 comes after them.  :func:`params_from_jax` does the same for the LM
-stack's parameters.
+stack's parameters, and :func:`train_state_from_jax` for a whole training
+state (parameters and AdamW moments).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from ._device import resolve_device
 from .core.scoring import CandidateStats, f32
 from .core.types import CandidateSet
 from .serve.archive import DeviceArchive
+from .train import OptState, TrainState
 
 _FIELDS = ("names", "regions", "azs", "families", "categories", "vcpus",
            "memory_gb", "prices", "t3")
@@ -94,3 +96,23 @@ def params_from_jax(params_np_tree, *, device=None):
         return _tensor_from_numpy(node, dev)
 
     return walk(params_np_tree)
+
+
+def train_state_from_jax(state_np_tree, *, device=None):
+    """The port's ``TrainState`` from the reference's.
+
+    ``state_np_tree`` is the reference's ``TrainState`` with every leaf a
+    numpy array (``jax.tree.map(np.asarray, state)``): ``(params, (mu, nu,
+    master, count))``.  Parameters, both moments, the float32 master copy
+    (``None`` stays ``None``) and the step count land on ``device`` (CUDA
+    when ``None``) bit for bit, so both packages can step from one state.
+    """
+    params, (mu, nu, master, count) = state_np_tree
+    load = lambda tree: params_from_jax(tree, device=device)  # noqa: E731
+    dev = resolve_device(device)
+    return TrainState(
+        params=load(params),
+        opt=OptState(mu=load(mu), nu=load(nu),
+                     master=None if master is None else load(master),
+                     count=torch.tensor(int(np.asarray(count)),
+                                        dtype=torch.int32, device=dev)))

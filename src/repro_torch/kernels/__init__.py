@@ -14,6 +14,9 @@ PyTorch versions beside them.
                replaces ``repro.kernels.rwkv6_scan._wkv_kernel``)
 - rglru_scan : the chunked RG-LRU recurrence of RecurrentGemma's prefill
                (kernel B6, replaces ``repro.kernels.rglru_scan._rglru_kernel``)
+- flash_attention : causal GQA attention of the full-sequence forward
+               (kernel B4, replaces
+               ``repro.kernels.flash_attention._flash_kernel``)
 
 CPU tensors take the plain version, CUDA tensors the kernel; ``_build``
 compiles ``csrc/*.cu`` with nvcc on first use.

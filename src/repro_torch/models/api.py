@@ -1,11 +1,11 @@
-"""Model facade: family dispatch for the serving path.
+"""Model facade: family dispatch for the forward and serving paths.
 
 PyTorch counterpart of ``repro.models.api``.  ``get_model(cfg)`` returns a
 :class:`Model` bound to a device (CUDA unless the caller passes
 ``device="cpu"``); ``init`` draws parameters from a seeded
-``torch.Generator`` on that device, and ``prefill`` / ``decode_step`` serve
-a batch.  ``forward`` (training and evaluation) comes with the training
-slice; encoder-decoder models and modality frontends are not ported yet.
+``torch.Generator`` on that device, ``forward`` runs a full sequence
+(training and evaluation) and ``prefill`` / ``decode_step`` serve a batch.
+Encoder-decoder models and modality frontends are not ported yet.
 """
 from __future__ import annotations
 
@@ -41,8 +41,13 @@ class Model:
 
     # -- compute -------------------------------------------------------
     def forward(self, params, batch, *, train=True):
-        raise NotImplementedError("forward (training and evaluation) comes "
-                                  "with the training slice (ROADMAP B.4)")
+        """``batch``: ``{"tokens": (B, S) ids, ...}``.  Returns the logits
+        (B, S, V) and the MoE auxiliary loss."""
+        if self.cfg.encdec:
+            raise NotImplementedError("encoder-decoder models are not ported "
+                                      "yet (ROADMAP A.9)")
+        return lm.forward(self.cfg, params, batch["tokens"],
+                          batch.get("prefix_embeds"), train=train)
 
     def prefill(self, params, batch, cache):
         """``batch``: ``{"tokens": (B, S) ids}``.  Returns the last

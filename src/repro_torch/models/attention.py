@@ -1,19 +1,23 @@
 """Attention: GQA/MQA (+bias/qk_norm/window) and DeepSeek MLA.
 
 PyTorch counterpart of ``repro.models.attention`` for self-attention.  The
-core is the reference's: direct softmax attention for short keys and
-decode, and above ``2 * kv_chunk`` keys the KV-chunked online-softmax scan
-(`_chunked_attend`, a Python loop over chunks in place of ``lax.scan``).
-Serving always passes ``kv_valid``, so it never reaches the reference's
-flash-attention kernel (B4); that branch of :func:`attend` comes with the
-training slice and raises until then.  Caches are written in place.
-Cross-attention (encoder-decoder models) is not ported yet.
+core is the reference's: the flash-attention kernel B4 under
+``use_pallas`` for a causal, windowless, cacheless call (the full-sequence
+forward; serving always passes ``kv_valid`` and never reaches it), else
+direct softmax attention for short keys and decode, and above
+``2 * kv_chunk`` keys the KV-chunked online-softmax scan
+(`_chunked_attend`, a Python loop over chunks in place of ``lax.scan``,
+each chunk recomputed in the backward pass as the reference's
+``jax.checkpoint`` does).  Caches are written in place.  Cross-attention
+(encoder-decoder models) is not ported yet.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..kernels.flash_attention import flash_attention
 from .layers import (apply_rope, constrain, rmsnorm, rope_angles,
                      tp_project_rs)
 from .param import ParamSpec
@@ -61,12 +65,8 @@ def _chunked_attend(q, k, v, qpos, kpos, *, causal, window, kv_valid, scale,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kpos = torch.nn.functional.pad(kpos, (0, pad), value=2 ** 30)  # never valid
-    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
-    o = torch.zeros((B, Sq, KV, G, Dv), dtype=torch.float32, device=q.device)
-    for c in range(n_chunks):
-        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
-        kb, vb, kp = k[:, sl], v[:, sl], kpos[sl]
+
+    def body(m, l, o, kb, vb, kp):
         s = torch.einsum("bqkgd,bckd->bqkgc", q, kb).float() * scale
         msk = _mask(qpos, kp, causal=causal, window=window, kv_valid=kv_valid)
         s = torch.where(msk[None, :, None, None, :], s, NEG_INF)
@@ -76,19 +76,36 @@ def _chunked_attend(q, k, v, qpos, kpos, *, causal, window, kv_valid, scale,
         l = l * corr + p.sum(-1)
         o = o * corr[..., None] + torch.einsum(
             "bqkgc,bckd->bqkgd", p.to(vb.dtype), vb).float()
-        m = m_new
+        return m_new, l, o
+
+    # under autograd each chunk is recomputed in the backward pass instead
+    # of saving its (Sq x chunk) scores, as the reference's jax.checkpoint
+    # of the scan body does: memory changes, values do not
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
+    o = torch.zeros((B, Sq, KV, G, Dv), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        args = (m, l, o, k[:, sl], v[:, sl], kpos[sl])
+        m, l, o = (checkpoint(body, *args, use_reentrant=False) if grad
+                   else body(*args))
     return (o / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
 
 
 def attend(q, k, v, qpos, kpos, *, causal=True, window=0, kv_valid=None,
            kv_chunk=1024, use_pallas=False):
-    """Dispatch: direct (short keys, decode) or chunked scan (long keys)."""
+    """Dispatch: the flash-attention kernel B4 (full-sequence causal
+    forward under ``use_pallas``), direct (short keys, decode) or chunked
+    scan (long keys)."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     Sq, Sk = q.shape[1], k.shape[1]
     if use_pallas and Sq > 1 and causal and window == 0 and kv_valid is None:
-        raise NotImplementedError(
-            "the flash-attention kernel (B4) is not ported yet: it comes with "
-            "the training slice (ROADMAP B.4)")
+        B, _, KV, G, D = q.shape
+        out = flash_attention(q.reshape(B, Sq, KV * G, D).contiguous(),
+                              k.contiguous(), v.contiguous(), scale=scale)
+        return out.reshape(B, Sq, KV, G, D)
     if Sq == 1 or Sk <= 2 * kv_chunk:
         return _direct_attend(q, k, v, qpos, kpos, causal=causal, window=window,
                               kv_valid=kv_valid, scale=scale)

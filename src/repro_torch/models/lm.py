@@ -1,7 +1,9 @@
 """Decoder-only LM assembly: pattern-based layer stack and caches.
 
-PyTorch counterpart of ``repro.models.lm`` for the serving path
-(``prefill`` and ``decode_step``).  The parameter tree is the reference's:
+PyTorch counterpart of ``repro.models.lm``: the full-sequence forward
+(``forward`` / ``forward_hidden``, for training and evaluation) and the
+serving path (``prefill`` and ``decode_step``).  The parameter tree is the
+reference's:
 
     prefix layers   — unrolled (e.g. DeepSeek's first dense layer)
     unit            — ``num_units`` repeats of ``block_pattern``, parameters
@@ -12,9 +14,12 @@ Each layer is a pre-norm mixing block (``attn`` — MLA, or GQA with a ring
 cache when the config has a window — ``rwkv`` or ``rglru``) and a pre-norm
 FFN block (dense MLP or MoE).  The reference scans the unit with
 ``lax.scan``; here a Python loop walks the stacked axis (each step a view of
-one unit's parameters and cache).  Caches are written in place.  Prefix
-embeddings (modality frontends) raise ``NotImplementedError`` naming their
-ROADMAP item.
+one unit's parameters and cache).  In training (``train`` with
+``cfg.remat`` and autograd on) each unit runs under
+``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of the
+scanned unit: its activations are recomputed in the backward pass.  Caches
+are written in place.  Prefix embeddings (modality frontends) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn_lib
@@ -237,12 +243,11 @@ def _embed_inputs(cfg, params, tokens, prefix_embeds):
 
 
 def _logits(cfg, params, x):
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return torch.einsum("bsd,vd->bsv", x, head)
+    return torch.einsum("bsd,vd->bsv", x, lm_head_weights(cfg, params))
 
 
 def _run_stack(cfg, params, x, positions, caches, cache_index, kv_valid,
-               decode):
+               decode, train=False):
     """The layer stack and the final norm.
 
     The reference's jitted stack rounds as XLA fuses it, and the port
@@ -250,7 +255,10 @@ def _run_stack(cfg, params, x, positions, caches, cache_index, kv_valid,
     the final norm, the residual sum a layer ends with feeds the next first
     norm unrounded (only the carried residual is rounded to bf16); the
     scan's carry, and so the input of each unit and of the first suffix
-    layer, is the rounded bf16 stream.
+    layer, is the rounded bf16 stream.  With ``train``, ``cfg.remat`` and
+    autograd on, each unit is recomputed in the backward pass (every
+    ``remat_policy`` recomputes the whole unit here: the policy changes
+    what is saved, never a value).
     """
     prefix, scanned, suffix, U = _partition(cfg)
     aux_total = 0.0
@@ -268,16 +276,26 @@ def _run_stack(cfg, params, x, positions, caches, cache_index, kv_valid,
     if U > 0:
         kinds = [_layer_kind(cfg, scanned[0] + j) for j in range(cfg.repeat_unit)]
         moes = [_is_moe_layer(cfg, scanned[0] + j) for j in range(cfg.repeat_unit)]
-        for u in range(U):
-            p_u = tree_map(lambda a: a[u], params["unit"])
-            c_u = tree_map(lambda a: a[u], caches["unit"]) if caches else None
-            x_sum = None
+
+        def unit(x, p_u, c_u):
+            x_sum, aux = None, 0.0
             for j, (kind, moe_l) in enumerate(zip(kinds, moes)):
                 c = c_u[f"b{j}"] if c_u is not None else None
                 x, _, a, x_sum = _apply_layer(cfg, kind, moe_l, p_u[f"b{j}"], x,
                                               positions, c, cache_index,
                                               kv_valid, decode, x_norm=x_sum)
-                aux_total = aux_total + a
+                aux = aux + a
+            return x, aux
+
+        remat = train and cfg.remat and torch.is_grad_enabled()
+        for u in range(U):
+            p_u = tree_map(lambda a: a[u], params["unit"])
+            c_u = tree_map(lambda a: a[u], caches["unit"]) if caches else None
+            if remat:
+                x, a = checkpoint(unit, x, p_u, c_u, use_reentrant=False)
+            else:
+                x, a = unit(x, p_u, c_u)
+            aux_total = aux_total + a
         # the unit caches were written in place through the views
         new_caches["unit"] = caches["unit"] if caches else None
 
@@ -295,6 +313,31 @@ def _run_stack(cfg, params, x, positions, caches, cache_index, kv_valid,
     x = rmsnorm(params["final_norm"], x if x_sum is None else x_sum,
                 cfg.rms_eps, dtype=x.dtype)
     return x, new_caches, aux_total
+
+
+def forward(cfg: ModelConfig, params, tokens, prefix_embeds=None, *,
+            train=True):
+    """Full-sequence forward (training / evaluation).  Returns (logits,
+    aux)."""
+    x, aux = forward_hidden(cfg, params, tokens, prefix_embeds, train=train)
+    return _logits(cfg, params, x), aux
+
+
+def forward_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None, *,
+                   train=True):
+    """Forward up to the final norm (pre-logits): the fused-CE entry point.
+    Attention takes the flash-attention kernel B4 under ``cfg.use_pallas``
+    (which has no backward), else the plain route."""
+    x = _embed_inputs(cfg, params, tokens, prefix_embeds)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    x, _, aux = _run_stack(cfg, params, x, positions, None, None, None,
+                           decode=False, train=train)
+    return x, aux
+
+
+def lm_head_weights(cfg: ModelConfig, params):
+    return params["embed"] if cfg.tie_embeddings else params["lm_head"]
 
 
 @torch.no_grad()

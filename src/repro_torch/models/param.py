@@ -34,12 +34,13 @@ class ParamSpec:
 
 
 def tree_map(f, tree):
-    """``f`` over the leaves of nested dicts / lists / tuples (``None`` stays
-    ``None``)."""
+    """``f`` over the leaves of nested dicts / lists / tuples and named
+    tuples (``None`` stays ``None``)."""
     if isinstance(tree, dict):
         return {k: tree_map(f, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(f, v) for v in tree)
+        items = [tree_map(f, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
     if tree is None:
         return None
     return f(tree)

@@ -12,7 +12,14 @@ lie within one bf16 ulp of the plain version's float32 einsum, or within
 1e-3 * max|plain|.  B5 (the WKV6 scan) sums its chunk's cumsum and
 contractions in another order than the plain version: outputs and states
 within 1e-4 * max|plain|.  B6 (the RG-LRU scan) keeps the plain version's
-doubling order and is built with ``--fmad=false``: bit-identical.
+doubling order and is built with ``--fmad=false``: bit-identical.  B4 (flash
+attention) sums its products in the tensor cores' order: every element
+within one bf16 ulp of the plain version, or within 1e-3 * max|plain|.
+The reduced qwen2-0.5b (head_dim 64, which B4 takes) is held against the
+port's CPU run: its forward's logits within 5e-2 * max|CPU logits|, as
+for the other reduced models; a training step's loss and gradient norm
+within 1e-3 relative and every master-weight leaf within 2e-2 of the CPU
+tree's norm, as the CPU run is held against the reference.
 """
 import dataclasses
 
@@ -28,6 +35,7 @@ from repro_torch.core.types import CandidateSet, RequestBatch, ResourceRequest
 from repro_torch.kernels import _build
 from repro_torch.kernels import pool_scan as tps
 from repro_torch.kernels import score_fuse as tsf
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm as tgmm
 from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import rwkv6_scan as twkv
@@ -340,3 +348,90 @@ def test_reduced_recurrent_lm_on_the_card_matches_cpu(cuda, arch, counter):
         assert float((a.float().cpu() - ref).abs().max()) <= 5e-2 * float(ref.abs().max())
         tok = ref[:, -1].argmax(-1, keepdim=True)
     assert counter.launches == n_rec
+
+
+@pytest.mark.parametrize("S", [77, 300, 4096])
+@pytest.mark.parametrize("G", [1, 7])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_kernel_matches_plain_version(cuda, D, G, S):
+    B, KV = (1, 2) if S == 4096 else (2, 2)
+    g = torch.Generator(device=cuda).manual_seed(S * G + D)
+    bf = lambda *s: torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)  # noqa: E731
+    q, k, v = bf(B, S, KV * G, D), bf(B, S, KV, D), bf(B, S, KV, D)
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    plain = tfa.flash_attention(q, k, v, scale=D ** -0.5, backend="torch")
+    far = assert_within_ulp(out, plain)
+    print(f"B4 at {(B, S, KV * G, D)}: {far} of {out.numel()} beyond one ulp")
+
+
+def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 8, 2, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q, q, q, scale=0.25)
+    q = torch.zeros((1, 8, 2, 64), dtype=torch.float32, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa.flash_attention(q, q, q, scale=0.125)
+
+
+def _reduced_qwen(**over):
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("qwen2-0.5b").reduced(head_dim=64),
+                               **over)
+
+
+def test_reduced_qwen_forward_on_the_card_matches_cpu(cuda):
+    """The reduced qwen2-0.5b's full-sequence forward on the card (B4
+    launched in every layer) against the same weights on the CPU."""
+    from repro_torch.models import get_model
+    from repro_torch.models.param import tree_map
+    cfg = _reduced_qwen(use_pallas=True)
+    gpu, cpu = get_model(cfg, device=cuda), get_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gparams = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 200)))
+    tfa.flash_attention.launches = 0
+    with torch.no_grad():
+        lg, _ = gpu.forward(gparams, {"tokens": tokens.to(cuda)}, train=False)
+        lc, _ = cpu.forward(params, {"tokens": tokens}, train=False)
+    assert tfa.flash_attention.launches == cfg.num_layers
+    ref = lc.float()
+    dev = float((lg.float().cpu() - ref).abs().max() / ref.abs().max())
+    print(f"reduced qwen2-0.5b forward, card vs CPU: {dev:.4g} of max|logits|")
+    assert dev <= 5e-2
+
+
+def test_reduced_train_step_on_the_card_matches_cpu(cuda):
+    """One training step of the reduced qwen2-0.5b (plain attention route,
+    two microbatches) on the card against the CPU from the same state."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_model
+    from repro_torch.models.param import tree_map
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.train.optim import tree_flatten
+    cfg = _reduced_qwen()
+    tcfg = TrainConfig(grad_accum=2, warmup_steps=2, total_steps=10)
+    cpu = get_model(cfg, device="cpu")
+    state = init_train_state(cpu, tcfg, torch.Generator().manual_seed(0))
+    gstate = tree_map(lambda t: t.to(cuda), state)
+    batch = make_pipeline(cfg, 72, 4, seed=1, device="cpu").batch(0)
+    tfa.flash_attention.launches = 0
+    gs, gm = build_train_step(get_model(cfg, device=cuda), tcfg)(
+        gstate, {k: v.to(cuda) for k, v in batch.items()})
+    cs, cm = build_train_step(cpu, tcfg)(state, batch)
+    assert tfa.flash_attention.launches == 0
+    for key in ("loss", "grad_norm", "lr"):
+        rel = abs(float(gm[key]) - float(cm[key])) / abs(float(cm[key]))
+        print(f"{key}: card {float(gm[key]):.7g}, CPU {float(cm[key]):.7g}")
+        assert rel <= 1e-3, key
+    want = tree_flatten(cs.opt.master)[0]
+    norm = float(torch.sqrt(sum((t.double() ** 2).sum() for t in want)))
+    worst = max(float((a.cpu().double() - b.double()).norm()) / norm
+                for a, b in zip(tree_flatten(gs.opt.master)[0], want))
+    print(f"master weights: worst leaf {worst:.3g} of the tree's norm")
+    assert worst <= 2e-2
+

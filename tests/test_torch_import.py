@@ -21,6 +21,8 @@ from repro_torch import _device, convert
 from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import RecommendationEngine
 from repro_torch.core.types import CandidateSet
+from repro_torch.data import make_pipeline
+from repro_torch.launch import train as train_launcher
 from repro_torch.kernels import _build
 from repro_torch.models import get_model
 from repro_torch.serve import ArchiveCache, BatchServer, DeviceArchive
@@ -45,7 +47,11 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.models.attention", "repro_torch.models.moe",
            "repro_torch.models.lm", "repro_torch.models.api",
            "repro_torch.kernels.rwkv6_scan", "repro_torch.kernels.rglru_scan",
-           "repro_torch.models.rwkv6", "repro_torch.models.rglru"]
+           "repro_torch.models.rwkv6", "repro_torch.models.rglru",
+           "repro_torch.kernels.flash_attention", "repro_torch.train",
+           "repro_torch.train.optim", "repro_torch.train.step",
+           "repro_torch.data", "repro_torch.data.pipeline",
+           "repro_torch.launch", "repro_torch.launch.train"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
@@ -106,8 +112,16 @@ def _tiny_candidates() -> CandidateSet:
     lambda: convert.params_from_jax({"w": np.zeros(2, np.float32)}),
     lambda: get_model(get_config("rwkv6-7b")),
     lambda: get_model(get_config("recurrentgemma-2b")),
+    lambda: get_model(get_config("qwen2-0.5b")),
+    lambda: make_pipeline(get_config("qwen2-0.5b"), 8, 1),
+    lambda: convert.train_state_from_jax(
+        ({"w": np.zeros(2, np.float32)},
+         ({"w": np.zeros(2, np.float32)}, {"w": np.zeros(2, np.float32)},
+          None, np.int32(0)))),
+    lambda: train_launcher.main(["--arch", "qwen2-0.5b", "--reduced"]),
 ], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage",
-        "model", "params", "model-rwkv6", "model-recurrentgemma"])
+        "model", "params", "model-rwkv6", "model-recurrentgemma",
+        "model-qwen2", "pipeline", "train-state", "launcher"])
 def test_default_device_raises_without_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -47,6 +47,8 @@ from repro.models import moe as jmoe
 from repro_torch import convert
 from repro_torch.configs.registry import get_config as torch_config
 from repro_torch.models import attention as tattn
+from repro_torch.launch import train as train_launcher
+from repro_torch.models import Model as TorchModel
 from repro_torch.models import get_model as torch_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
@@ -243,11 +245,24 @@ def test_chunked_attention_matches_reference():
 
 
 def test_flash_branch_raises_until_its_slice():
-    q = torch.zeros((1, 4, 1, 1, 8), dtype=torch.bfloat16)
-    k = torch.zeros((1, 4, 1, 8), dtype=torch.bfloat16)
-    pos = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B.4"):
-        tattn.attend(q, k, k, pos, pos, use_pallas=True)
+    """Its slice (the full-sequence forward) has come: without a cache,
+    ``attend(use_pallas=True)`` takes the flash-attention kernel B4 (its
+    plain version on the CPU) and matches the reference's B4 branch, the
+    Pallas body in interpret mode, on the grouped (B, S, KV, G, D) query."""
+    rng = np.random.default_rng(7)
+    Bq, Sq, KV, G, D = 2, 72, 2, 3, 16
+    q = bf16(rng.standard_normal((Bq, Sq, KV, G, D)))
+    k = bf16(rng.standard_normal((Bq, Sq, KV, D)))
+    v = bf16(rng.standard_normal((Bq, Sq, KV, D)))
+    pos = np.arange(Sq, dtype=np.int32)
+    want = jax.jit(lambda q, k, v: jattn.attend(
+        q, k, v, jnp.asarray(pos), jnp.asarray(pos), kv_chunk=32,
+        use_pallas=True))(q, k, v)
+    got = tattn.attend(to_torch(q), to_torch(k), to_torch(v),
+                       torch.from_numpy(pos), torch.from_numpy(pos),
+                       kv_chunk=32, use_pallas=True)
+    assert tuple(got.shape) == (Bq, Sq, KV, G, D)
+    assert_close_bf16(got, f32(want).reshape(Bq, Sq, KV, G, D))
 
 
 # ---------------------------------------------------------------------------
@@ -355,12 +370,16 @@ def test_whole_model_greedy_tokens_match_reference(served):
 
 
 def test_unported_paths_raise():
-    # the flash-attention kernel B4: reached only without a cache (training)
-    q = torch.zeros((1, 4, 1, 1, 8), dtype=torch.bfloat16)
+    # the flash-attention kernel B4 has no backward (nor has the reference's)
+    q = torch.zeros((1, 4, 1, 1, 8), dtype=torch.bfloat16, requires_grad=True)
     k = torch.zeros((1, 4, 1, 8), dtype=torch.bfloat16)
     pos = torch.arange(4, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B.4"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         tattn.attend(q, k, k, pos, pos, use_pallas=True)
+    # checkpoints of the training launcher
+    with pytest.raises(NotImplementedError, match="A.9"):
+        train_launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
+                             "cpu", "--ckpt-dir", "unused"])
     # encoder-decoder models, modality frontends and prefix embeddings
     for arch in ("seamless-m4t-medium", "llava-next-mistral-7b"):
         with pytest.raises(NotImplementedError, match="A.9"):
@@ -370,5 +389,7 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="A.9"):
         tlm._embed_inputs(ct, {"embed": torch.zeros((8, 64))}, tokens,
                           torch.zeros((1, 3, 64)))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        torch_model(ct, device="cpu").forward({}, {})
+    encdec = torch_config("seamless-m4t-medium").reduced()
+    with pytest.raises(NotImplementedError, match="A.9"):
+        TorchModel(encdec, torch.device("cpu")).forward(
+            {}, {"tokens": tokens})
