@@ -24,7 +24,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    an archive holding the card's statistics: score rows must be
    bit-identical, and pools identical except where the decision-margin
    replay puts a decision within float32 rounding of the two devices'
-   prefix sums (a tie, counted and printed).
+   prefix sums (a tie, counted and printed).  Also counts the served
+   single-type pools above ceil(R / c0) nodes (F5 in ROADMAP C; printed,
+   not a gate).
 4. Live-ingest path (float32, then int8): a seeded synthetic feed over the
    same K = 32768 catalog primes a rolling archive of capacity 1008 with 504
    columns through ``EngineConfig.build_ingestor``, then absorbs 1512 ticks
@@ -91,7 +93,16 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    cross-entropy of the forward phase's B4 logits on the same batch.
    Prints step time, tokens/s, peak memory, the model-FLOP share and a
    profiled fourth step.
-8. Print the ``kernels`` JSON line, the card line, and last the ``ok`` line.
+8. Print B4's time over SDPA's and B8's over ``torch.bmm``'s (prefill and
+   decode), each pair from this run, the ``kernels`` JSON line, the card
+   line, and last the ``ok`` line.
+
+Kernel device times come from ``torch.profiler``, summed over the kernels
+of the wrapper's own symbol (B4 ``flash_kernel``, B7 ``gmm_kernel``, B8
+``gmm_down_kernel``, ...); a trace with device time but none under that
+name fails, so a renamed kernel cannot pass as an event time.  The build
+lines print each kernel's ptxas registers and spills and the dynamic
+shared memory of B4 and B8.
 
 Exits non-zero without printing a result when CUDA is unavailable or when
 the ``src/repro_torch`` package is not beside this script.
@@ -271,15 +282,22 @@ def time_ms(fn, names: tuple[str, ...] | None):
             for _ in range(TIME_REPS):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
-        for evt in prof.key_averages():
-            dev_us = getattr(evt, "self_device_time_total",
-                             getattr(evt, "self_cuda_time_total", 0.0))
-            if names is None or any(n in evt.key for n in names):
-                total_us += dev_us
-        prof_ms = total_us / 1e3 / TIME_REPS if total_us > 0 else None
     except RuntimeError as err:   # no CUPTI on this machine: events only
         print(f"profiler unavailable ({err}); kernel time from events")
+        return call_ms, None
+    total_us, seen = 0.0, []
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            seen.append(evt.key)
+        if names is None or any(n in evt.key for n in names):
+            total_us += dev_us
+    if seen and total_us == 0:
+        # a renamed kernel must not turn a profiler time into an event time
+        fail(f"the profiler recorded device time, but under no kernel named "
+             f"{names}: {sorted(seen)[:8]}")
+    prof_ms = total_us / 1e3 / TIME_REPS if total_us > 0 else None
     return call_ms, prof_ms
 
 
@@ -376,10 +394,15 @@ def kernel_phase(torch, cands, archive):
     return timings
 
 
-def check_pools(cands, calls, served, label: str) -> None:
+def check_pools(cands, calls, served, label: str) -> dict:
     """Algorithm 1's own invariants: a non-empty pool of positive counts,
-    inside the request's filters, whose capacity covers the request."""
+    inside the request's filters, whose capacity covers the request.
+    Returns how many pools hold one type, and how many of those exceed
+    ``ceil(R / c0)`` nodes: the reference's float32 ``ceil(s0 R / (s0
+    c0))`` can land one node above (F5, ROADMAP C), which the port keeps;
+    a count, not a gate."""
     row_of = {name: i for i, name in enumerate(cands.names)}
+    single = over = 0
     for reqs, recs in zip(calls, served):
         for req, rec in zip(reqs, recs):
             rows = np.array([row_of[n] for n in rec.names], np.int64)
@@ -390,6 +413,10 @@ def check_pools(cands, calls, served, label: str) -> None:
                     and np.isfinite(rec.hourly_cost)
                     and (rec.counts * cap).sum() >= req.amount):
                 fail(f"{label}: malformed pool for {req}")
+            if rows.size == 1:
+                single += 1
+                over += int(rec.counts[0] > np.ceil(req.amount / cap[0]))
+    return dict(single_type_pools=single, single_type_over_ceil=over)
 
 
 def compare_with_cpu(torch, server, archive, cands, calls, served, label):
@@ -475,11 +502,13 @@ def main_path(torch, cands):
         if n == 0:
             fail(f"the main path never launched kernel {name}")
 
-    check_pools(cands, calls, served, "main path")
+    f5 = check_pools(cands, calls, served, "main path")
+    print(f"main path: {f5['single_type_pools']} single-type pools, "
+          f"{f5['single_type_over_ceil']} above ceil(R / c0) nodes (F5)")
     report = compare_with_cpu(torch, server, archive, cands, calls, served,
                               "main path")
     return launches, dict(serve_ms=serve_ms, requests=N_CALLS * B_FULL,
-                          **report)
+                          f5=f5, **report)
 
 
 class SyntheticFeed:
@@ -790,7 +819,9 @@ def gmm_times(torch, gmm, name, args, c_rows):
     """Kernel B7 or B8 alone on captured operands: device and call time,
     the plain version's, torch.bmm's for B8, and the bound."""
     fn = getattr(gmm, name)
-    call_ms, dev_ms = time_ms(lambda: fn(*args), ("gmm_kernel",))
+    # B7 is `gmm_kernel<MT, 2>`, B8 the Hopper `gmm_down_kernel<MT>`
+    symbol = "gmm_down_kernel" if name == "moe_gmm_down" else "gmm_kernel"
+    call_ms, dev_ms = time_ms(lambda: fn(*args), (symbol,))
     plain_call_ms, plain_dev_ms = time_ms(lambda: fn(*args, backend="torch"),
                                           None)
     x = args[0]
@@ -805,8 +836,9 @@ def gmm_times(torch, gmm, name, args, c_rows):
     if name == "moe_gmm_down":
         lib_call_ms, lib_dev_ms = time_ms(lambda: torch.bmm(*args), None)
         lib_ms = lib_dev_ms if lib_dev_ms is not None else lib_call_ms
-    return dict(E=E, C=C, K=K, N=N, c_rows=c_rows,
-                ms=dev_ms if dev_ms is not None else call_ms,
+    ms = dev_ms if dev_ms is not None else call_ms
+    return dict(E=E, C=C, K=K, N=N, c_rows=c_rows, ms=ms,
+                ratio_to_library=ms / lib_ms if lib_ms else None,
                 ms_source="profiler" if dev_ms is not None else "events",
                 call_ms=call_ms,
                 plain_ms=plain_dev_ms if plain_dev_ms is not None
@@ -1337,16 +1369,17 @@ def flash_times(torch, captured):
     nbytes, nops = flash_cost(B, S, k.shape[1], H, k.shape[2], D)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / BF16_OPS_PER_S * 1e3
-    return dict(shape=[B, S, H, D], kv_heads=k.shape[2],
-                ms=dev_ms if dev_ms is not None else call_ms,
+    ms = dev_ms if dev_ms is not None else call_ms
+    lib_ms = lib_dev_ms if lib_dev_ms is not None else lib_call_ms
+    return dict(shape=[B, S, H, D], kv_heads=k.shape[2], ms=ms,
+                ratio_to_library=ms / lib_ms,
                 ms_source="profiler" if dev_ms is not None else "events",
                 call_ms=call_ms,
                 plain_ms=plain_dev_ms if plain_dev_ms is not None
                 else plain_call_ms,
                 plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=nops,
-                library_ms=lib_dev_ms if lib_dev_ms is not None else lib_call_ms,
+                bytes=nbytes, ops=nops, library_ms=lib_ms,
                 library="scaled_dot_product_attention(is_causal=True, "
                         "enable_gqa=True)")
 
@@ -1579,6 +1612,19 @@ def train_phase(torch, forward_ce: float):
     return report
 
 
+def hopper_smem_line() -> str:
+    """The dynamic shared memory of B4 and B8 by configuration (ptxas
+    reports static shared memory only)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    b4 = ", ".join(f"D={d}: {fa.launch_plan(1, 128, 1, d).smem_bytes}"
+                   for d in fa.HEAD_DIMS)
+    b8 = ", ".join(f"{t} m64 tiles: {gmm.down_plan(1, 64 * t, 64, 128, 1).smem_bytes}"
+                   for t in (1, 2, 4))
+    return (f"dynamic shared memory a block (bytes): flash_kernel {b4}; "
+            f"gmm_down_kernel {b8}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1605,8 +1651,9 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s")
     for name in sources:
         for line in _build.build_log(name).splitlines():
-            if "Used" in line or "spill" in line:
+            if "entry function" in line or "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    print(hopper_smem_line())
 
     t0 = time.perf_counter()
     cands = candidates(K_FULL, T_FULL)
@@ -1673,6 +1720,11 @@ def main() -> None:
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **t})
+    b8 = timings["moe_gmm_down"]["shapes"]
+    print("same-run ratios: B4/SDPA {:.3f}; B8/bmm prefill {:.3f}, decode "
+          "{:.3f}".format(timings["flash_attention"]["ratio_to_library"],
+                          b8["prefill"]["ratio_to_library"],
+                          b8["decode"]["ratio_to_library"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

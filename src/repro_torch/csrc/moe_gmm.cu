@@ -5,42 +5,58 @@
 // `moe_gmm`) and `_gmm_down_kernel` (launched by `moe_gmm_down`).  On the TPU
 // each runs an (E, C/bc, F/bf, D/bd) grid whose last axis walks the
 // contraction in order and carries float32 accumulators in VMEM scratch,
-// masking the ragged tails of C, D and F.  Here one block owns an output
-// tile of (16*MT) rows x 128 columns of one expert and walks the whole
-// contraction itself, so nothing carries between blocks:
+// masking the ragged tails of C, D and F.  Here each block owns an output
+// tile of one expert and walks the whole contraction itself, so nothing
+// carries between blocks:
 //
 //   B7:  out[e] = silu(x[e] @ w1[e]) * (x[e] @ w3[e])   x (E,C,D), w (E,D,F)
 //   B8:  out[e] = h[e] @ w2[e]                          h (E,C,F), w2 (E,F,D)
 //
-// Each stage copies a (16*MT) x 32 tile of activations and a 32 x 128 tile
-// of each weight into shared memory with cp.async (two stages in flight);
-// four warps, side by side along the columns, load fragments with ldmatrix
+// B7 (`gmm_kernel`): one block owns (16*MT) rows x 128 columns.  Each stage
+// copies a (16*MT) x 32 tile of activations and a 32 x 128 tile of each
+// weight into shared memory with cp.async (two stages in flight); four
+// warps, side by side along the columns, load fragments with ldmatrix
 // (.trans for the row-major weights) and run mma.sync m16n8k16 bf16
 // products into float32 accumulators.  The epilogue takes silu(acc1)*acc3
-// in float32 (B7) and casts once to bf16.  Rows past C, contraction steps
-// past D (B7) or F (B8), and columns past the output width are zero-filled
-// on load or skipped on store.  Shapes whose rows are not 16-byte aligned
-// take element-wise loads instead of cp.async.
+// in float32 and casts once to bf16.  Rows past C, contraction steps past
+// D, and columns past F are zero-filled on load or skipped on store.
+// Shapes whose rows are not 16-byte aligned take element-wise loads.
 //
-// Bound on an H100: at decode (C = 8 rows per expert) bytes: the kernel
-// must read every weight of the layer once (738 MB for B7, 369 MB for B8
-// at DeepSeek-V2-Lite's widths) for ~3 flops a byte, far under the card's
-// ~295 bf16 flops per byte.  So each block reads its weight tiles exactly
-// once for all its rows (MT = 1 when C <= 16), and the (E x F/128) grid puts
-// several blocks on every SM to keep enough loads in flight.  At prefill
-// (C = 240) the tiles are 64 rows high and a weight tile is read once per
-// 64 rows; the tensor cores through mma.sync, not wgmma, cap the rate.
+// B8 (`gmm_down_kernel`, Hopper only): what bounds it is bytes.  At
+// DeepSeek-V2-Lite's prefill (C = 240) it must stream 369 MB of w2 for 89
+// GFLOP, 0.11 ms against 0.09 ms of tensor work; at decode (C = 8) the
+// weights are all there is.  So a block owns one expert's 128 output
+// columns for ALL its rows (up to 256 in one row group, four m64 tiles;
+// more rows loop over row groups inside the block): each w2 byte leaves
+// device memory once.  The grid is persistent, one block an SM walking the
+// E x (D / 128) output tiles, the column tiles of one expert side by side
+// so they share that expert's h in the L2, and the next tile's loads run
+// under this tile's stores.  One producer thread (warpgroup 0, its registers given up with setmaxnreg)
+// keeps a ring of 4-8 stages of TMA loads in flight: per stage an (up to
+// 256) x 64 tile of h and a 64 x 128 tile of w2 (two 64-column boxes,
+// N-major), 128-byte swizzled, guarded by full and empty mbarriers.  Two
+// consumer warpgroups run wgmma m64n128k16 straight from shared memory
+// (w2 through the descriptor's transpose bit; one stage's products still
+// in flight when the next stage's are issued), two m64 row tiles each
+// (one at C <= 128; at C <= 64 the second warpgroup idles: decode is
+// bytes-bound and the one product per stage is not the limit), and cast
+// to bf16 from registers, storing rows below C and columns below D.  The
+// tensor maps zero-fill rows past C, contraction steps past F and
+// columns past D, so a ragged tail adds zeros.  TMA needs 16-byte rows:
+// F and D multiples of 8 (the wrapper pads other shapes).
 //
 // Numerics: products of bf16 are exact in float32; the sums run in the
 // tensor cores' float32 order, unlike the plain version's float32 einsum,
-// so results agree to float32 rounding before the final cast.  silu is
-// a / (1 + expf(-a)) with IEEE division (built with --fmad=false, no fast
-// math), as PyTorch computes it.
+// so results agree to float32 rounding before the final cast.  silu (B7)
+// is a / (1 + expf(-a)) with IEEE division (built with --fmad=false, no
+// fast math), as PyTorch computes it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -265,6 +281,195 @@ int launch(const void* a, const void* w0, const void* w1, void* out, int E,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// B8 on Hopper: TMA ring, producer thread, wgmma consumers
+// ---------------------------------------------------------------------------
+
+namespace down {
+
+constexpr int BN = 128;            // output columns per block
+constexpr int BK = 64;             // contraction depth per stage: one swizzle row
+constexpr int THREADS = 384;       // producer warpgroup + two consumer warpgroups
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+// MT m64 row tiles a row group (1, 2 or 4); the ring is as deep as ~192 KB
+// of shared memory allows.
+template <int MT>
+struct Plan {
+  static constexpr int BM = 64 * MT;            // rows per row group
+  static constexpr int A_BYTES = BM * BK * 2;   // h tile
+  static constexpr int B_HALF = BK * 64 * 2;    // 64 columns of the w2 tile
+  static constexpr int STAGE = A_BYTES + 2 * B_HALF;
+  static constexpr int STAGES = MT == 4 ? 4 : (MT == 2 ? 6 : 8);
+  static constexpr int CONSUMERS = MT == 1 ? 1 : 2;
+  static constexpr int TILES = (MT + 1) / 2;    // m64 tiles per consumer
+  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+};
+
+// Persistent: block x takes the output tiles x, x + gridDim.x, ...; tile t
+// is expert t / col_tiles, columns 128 * (t % col_tiles).  The producer
+// runs on into the next tile's loads while the consumers store this one.
+template <int MT>
+__global__ void __launch_bounds__(THREADS, 1)
+    gmm_down_kernel(const __grid_constant__ CUtensorMap h_map,
+                    const __grid_constant__ CUtensorMap w_map,
+                    __nv_bfloat16* __restrict__ out, int E, int C, int F,
+                    int D) {
+  using P = Plan<MT>;
+  using namespace hopper;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::STAGES * P::STAGE);
+  uint64_t* empty = full + P::STAGES;
+
+  const int col_tiles = (D + BN - 1) / BN;
+  const int n_tiles = E * col_tiles;
+  const int groups = (C + P::BM - 1) / P::BM;
+  const int nk = (F + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < P::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], P::CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // producer: one thread walks (tile, row group, contraction step) in order
+    regs_shrink<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int e = tile / col_tiles;
+        const int n0 = (tile % col_tiles) * BN;
+        for (int rg = 0; rg < groups; ++rg) {
+          for (int kt = 0; kt < nk; ++kt) {
+            mbar_wait(&empty[s], phase ^ 1);
+            uint8_t* a = smem + s * P::STAGE;
+            uint8_t* b = a + P::A_BYTES;
+            mbar_expect_tx(&full[s], P::STAGE);
+            tma_load_3d(a, &h_map, &full[s], kt * BK, rg * P::BM, e);
+            tma_load_3d(b, &w_map, &full[s], n0, kt * BK, e);
+            tma_load_3d(b + P::B_HALF, &w_map, &full[s], n0 + 64, kt * BK, e);
+            if (++s == P::STAGES) {
+              s = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  regs_grow<CONSUMER_REGS>();
+  const int c = wg - 1;               // consumer c owns m64 tiles c, c + 2
+  if (c >= P::CONSUMERS) return;
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32;
+  const int lane = t % 32;
+  const uint32_t base = smem_u32(smem);
+  float acc[P::TILES][64];
+  int s = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int e = tile / col_tiles;
+    const int n0 = (tile % col_tiles) * BN;
+    for (int rg = 0; rg < groups; ++rg) {
+#pragma unroll
+      for (int i = 0; i < P::TILES; ++i)
+#pragma unroll
+        for (int j = 0; j < 64; ++j) acc[i][j] = 0.0f;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[s], phase);
+        const uint32_t a = base + s * P::STAGE;
+        const uint32_t b = a + P::A_BYTES;
+#pragma unroll
+        for (int i = 0; i < P::TILES; ++i) fence_regs(acc[i]);
+        wgmma_fence();
+#pragma unroll
+        for (int i = 0; i < P::TILES; ++i) {
+          const uint32_t a_tile = a + (c + 2 * i) * 64 * 128;
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) {
+            wgmma_m64n128k16_ss<1>(acc[i],
+                                   sw128_desc(a_tile + 32 * kk, 16, 1024),
+                                   sw128_desc(b + 2048 * kk, P::B_HALF, 1024),
+                                   1);
+          }
+        }
+        wgmma_commit();
+        // one group stays in flight: the previous stage's products are done
+        wgmma_wait<1>();
+        if (kt > 0 && t == 0) mbar_arrive(&empty[prev]);
+        prev = s;
+        if (++s == P::STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < P::TILES; ++i) fence_regs(acc[i]);
+      if (nk > 0 && t == 0) mbar_arrive(&empty[prev]);
+      // epilogue: one bf16 pair per (row, 8-column group) of each tile
+#pragma unroll
+      for (int i = 0; i < P::TILES; ++i) {
+        const int row0 = rg * P::BM + (c + 2 * i) * 64 + warp * 16 + lane / 4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = row0 + 8 * half;
+          if (row >= C) continue;
+          __nv_bfloat16* dst = out + ((size_t)e * C + row) * D;
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+            const int col = n0 + 8 * j + 2 * (lane % 4);
+            if (col < D) {
+              *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+                  __floats2bfloat162_rn(acc[i][4 * j + 2 * half],
+                                        acc[i][4 * j + 2 * half + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int MT>
+int launch(const void* h, const void* w2, void* out, int E, int C, int F,
+           int D, int grid_x, cudaStream_t st) {
+  using P = Plan<MT>;
+  CUtensorMap h_map, w_map;
+  const uint64_t h_dims[3] = {(uint64_t)F, (uint64_t)C, (uint64_t)E};
+  const uint64_t h_strides[2] = {(uint64_t)F * 2, (uint64_t)C * F * 2};
+  const uint32_t h_box[3] = {BK, P::BM, 1};
+  const uint64_t w_dims[3] = {(uint64_t)D, (uint64_t)F, (uint64_t)E};
+  const uint64_t w_strides[2] = {(uint64_t)D * 2, (uint64_t)F * D * 2};
+  const uint32_t w_box[3] = {64, BK, 1};
+  int err = hopper::make_tensor_map(&h_map, h, 3, h_dims, h_strides, h_box);
+  if (err) return err;
+  err = hopper::make_tensor_map(&w_map, w2, 3, w_dims, w_strides, w_box);
+  if (err) return err;
+  // above 48 KB only after opting in (per device, so on every launch)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_down_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      P::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  gmm_down_kernel<MT><<<grid_x, THREADS, P::SMEM, st>>>(
+      h_map, w_map, static_cast<__nv_bfloat16*>(out), E, C, F, D);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace down
+
 }  // namespace
 
 // B7: x (E, C, D), w1 and w3 (E, D, F), out (E, C, F); all bf16, contiguous.
@@ -274,8 +479,17 @@ extern "C" int moe_gmm_up_launch(const void* x, const void* w1, const void* w3,
   return launch<2>(x, w1, w3, out, E, C, D, F, (cudaStream_t)stream);
 }
 
-// B8: h (E, C, F), w2 (E, F, D), out (E, C, D); all bf16, contiguous.
+// B8: h (E, C, F), w2 (E, F, D), out (E, C, D); all bf16, contiguous,
+// 16-byte aligned, F and D multiples of 8.  `row_tiles` (1, 2 or 4 m64
+// tiles a row group) and `grid_x` (persistent blocks, at most one an SM)
+// come from the wrapper's launch plan.
 extern "C" int moe_gmm_down_launch(const void* h, const void* w2, void* out,
-                                   int E, int C, int F, int D, void* stream) {
-  return launch<1>(h, w2, w2, out, E, C, F, D, (cudaStream_t)stream);
+                                   int E, int C, int F, int D, int row_tiles,
+                                   int grid_x, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (F % 8 || D % 8) return (int)cudaErrorInvalidValue;
+  if (row_tiles == 1) return down::launch<1>(h, w2, out, E, C, F, D, grid_x, st);
+  if (row_tiles == 2) return down::launch<2>(h, w2, out, E, C, F, D, grid_x, st);
+  if (row_tiles == 4) return down::launch<4>(h, w2, out, E, C, F, D, grid_x, st);
+  return (int)cudaErrorInvalidValue;
 }

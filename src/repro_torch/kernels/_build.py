@@ -7,7 +7,9 @@ cut to 32 bits), and every entry point returns ``cudaGetLastError()``,
 which :func:`check` turns into an exception.
 
 A library is built once per process, on first use, into ``build/repro_torch/``
-at the root of the checkout (``.gitignore`` lists ``build/``).  A missing
+at the root of the checkout (``.gitignore`` lists ``build/``), under a name
+that hashes its source, every shared header ``csrc/*.cuh`` and the flags, so
+an edit to any of them builds anew.  A missing
 ``nvcc`` or a failed build raises: there is no fallback to the plain
 PyTorch version for a tensor that lives on the card.
 """
@@ -47,9 +49,11 @@ def nvcc_path() -> str:
 
 
 def _output(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
@@ -134,6 +138,25 @@ def expect(t, name: str, shape: tuple, dtypes: tuple, device) -> None:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether a contiguous tensor can be a TMA source: its base on a
+    16-byte boundary and every stride a multiple of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(
+        (st * t.element_size()) % 16 == 0 for st in t.stride()[:-1])
+
+
+def forbid_autograd(kernel: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` when grad is enabled and one of
+    ``tensors`` requires grad: the kernels have no backward (neither do the
+    reference's Pallas calls), and an output computed through a raw pointer
+    carries no autograd history, so a gradient would be dropped silently."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward: its output would carry no gradient; "
+            "train with use_pallas=False")
 
 
 def route(backend: str | None, device) -> str:

@@ -106,8 +106,10 @@ def rglru_scan(log_a, x_in, h0, *, backend: str | None = None):
     float32, all contiguous on one device.  Returns ``(hs, h_last)``:
     (B, S, R) and (B, R) float32.  CPU tensors take the plain version, CUDA
     tensors launch the kernel or raise; ``backend="torch"`` forces the
-    plain version.
+    plain version.  Raises ``NotImplementedError`` under autograd: B6 has
+    no backward.
     """
+    _build.forbid_autograd("rglru_scan (B6)", log_a, x_in, h0)
     B, S, R = log_a.shape
     dev = log_a.device
     cuda = _build.route(backend, dev) == "cuda"

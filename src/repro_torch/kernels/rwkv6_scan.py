@@ -116,7 +116,9 @@ def rwkv6_scan(r, k, v, log_w, u, s0, *, backend: str | None = None):
     CPU tensors take the plain version; CUDA tensors launch the kernel (r,
     k, v in bf16, D in ``CUDA_HEAD_DIMS``) or raise; ``backend="torch"``
     forces the plain version.  Both run chunks of ``CHUNK`` steps.
+    Raises ``NotImplementedError`` under autograd: B5 has no backward.
     """
+    _build.forbid_autograd("rwkv6_scan (B5)", r, k, v, log_w, u, s0)
     B, S, H, D = r.shape
     dev = r.device
     cuda = _build.route(backend, dev) == "cuda"

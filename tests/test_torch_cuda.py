@@ -229,7 +229,7 @@ def test_rolling_archive_on_the_card_matches_cpu(cuda):
     (8, 240, 2048, 1408),    # prefill rows (eight of the 64 experts)
     (3, 20, 200, 72),        # tails in C, D and F
     (2, 33, 136, 264),       # C between the tile heights
-    (2, 5, 37, 19),          # rows not 16-byte aligned: element-wise loads
+    (2, 5, 37, 19),          # rows not 16-byte aligned: B7 loads element-wise, B8 pads
 ])
 def test_moe_gmm_kernels_match_plain_versions(cuda, E, C, D, F):
     g = torch.Generator(device=cuda).manual_seed(E * C + D)
@@ -245,6 +245,27 @@ def test_moe_gmm_kernels_match_plain_versions(cuda, E, C, D, F):
         before[0] + 1, before[1] + 1)
     assert_within_ulp(h, tgmm.moe_gmm(x, w1, w3, backend="torch"))
     assert_within_ulp(y, tgmm.moe_gmm_down(h, w2, backend="torch"))
+
+
+@pytest.mark.parametrize("C", [8, 17, 240, 300])
+@pytest.mark.parametrize("F,D", [(1416, 200), (200, 1416), (72, 36)])
+def test_moe_gmm_down_kernel_matches_plain_version(cuda, C, F, D):
+    # F and D no multiples of B8's 64-deep stages or 128-column tiles; C
+    # from decode's one m64 tile to two row groups; (72, 36) pads D to 40
+    E = 3
+    g = torch.Generator(device=cuda).manual_seed(C * F + D)
+    h = torch.randn(E, C, F, generator=g, device=cuda).to(torch.bfloat16)
+    w2 = (torch.randn(E, F, D, generator=g, device=cuda) * F ** -0.5).to(
+        torch.bfloat16)
+    before = tgmm.moe_gmm_down.launches
+    y = tgmm.moe_gmm_down(h, w2)
+    torch.cuda.synchronize()
+    assert tgmm.moe_gmm_down.launches == before + 1
+    assert_within_ulp(y, tgmm.moe_gmm_down(h, w2, backend="torch"))
+    # an operand that starts off a 16-byte boundary is copied, not misread
+    h_off = torch.empty(E * C * F + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    h_off = h_off.view(E, C, F).copy_(h)
+    assert torch.equal(tgmm.moe_gmm_down(h_off, w2), y)
 
 
 def test_reduced_lm_on_the_card_matches_cpu(cuda):
@@ -350,11 +371,11 @@ def test_reduced_recurrent_lm_on_the_card_matches_cpu(cuda, arch, counter):
     assert counter.launches == n_rec
 
 
-@pytest.mark.parametrize("S", [77, 300, 4096])
+@pytest.mark.parametrize("S", [77, 300, 4000, 4096])
 @pytest.mark.parametrize("G", [1, 7])
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_attention_kernel_matches_plain_version(cuda, D, G, S):
-    B, KV = (1, 2) if S == 4096 else (2, 2)
+    B, KV = (1, 2) if S >= 4000 else (2, 2)
     g = torch.Generator(device=cuda).manual_seed(S * G + D)
     bf = lambda *s: torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)  # noqa: E731
     q, k, v = bf(B, S, KV * G, D), bf(B, S, KV, D), bf(B, S, KV, D)

@@ -143,6 +143,53 @@ def test_exact_multiples_match_reference_and_oracle(scores, cpus, req):
         assert got.iterations == ref.iterations
 
 
+# F5 (ROADMAP C): when Algorithm 1 stops at k = 1 the reference takes the
+# row ceil(s0 * R / (s0 * c0)) in float32, which lands one ulp above the
+# integer R / c0 on these single-member draws, so the pool holds R / c0 + 1
+# nodes where the float64 oracle ``greedy_pool`` holds R / c0.  The values
+# (float32 s0, node size c0, R a multiple of c0) come from a seeded numpy
+# search (s0 uniform in (0.1, 100), c0 from the adversarial sizes, R = m c0
+# with m < 400): 1421 of its 20000 draws over-count.  The port keeps the
+# reference's behaviour in both lanes.
+F5_OVERCOUNT = [
+    (70.24089050292969, 4.0, 60.0),
+    (99.4547348022461, 2.0, 392.0),
+    (63.23168182373047, 48.0, 1440.0),
+    (69.3587417602539, 32.0, 992.0),
+]
+
+
+@pytest.mark.parametrize("s0,c0,req", F5_OVERCOUNT)
+def test_single_type_pool_overcounts_as_the_reference_does(s0, c0, req):
+    exact = int(req // c0)
+    assert req == exact * c0 and np.float32(s0) == s0
+    for oracle in (tpool.greedy_pool([s0], [c0], req),
+                   jpool.greedy_pool([s0], [c0], req)):
+        assert list(oracle.counts) == [exact]
+    ref = jpool.greedy_pool_vectorized(np.array([s0]), np.array([c0]), req,
+                                       impl="dense")
+    assert list(ref.counts) == [exact + 1]
+    for impl in ("dense", "tiled"):
+        got = tpool.greedy_pool_vectorized(np.array([s0]), np.array([c0]), req,
+                                           impl=impl, device="cpu")
+        assert list(got.counts) == [exact + 1], impl
+    # the masked lanes the engine runs: the member among masked-out others
+    S = np.random.default_rng(5).uniform(0.1, 100.0, KW).astype(np.float32)
+    C = np.full(KW, 8.0, np.float32)
+    M = np.zeros(KW, bool)
+    S[7], C[7], M[7] = s0, c0, True
+    want = jax.device_get(masked_pool(S, C, np.float32(req), M, impl="tiled",
+                                      tile=TILE))
+    assert int(want[1].max()) == exact + 1
+    for impl in ("dense", "tiled"):
+        order, counts, k_stop, any_term = tpool.greedy_pool_masked(
+            torch.tensor(S), torch.tensor(C), torch.tensor(np.float32(req)),
+            torch.as_tensor(M), impl=impl)
+        assert int(order[0]) == int(want[0][0]) == 7
+        np.testing.assert_array_equal(counts.numpy(), want[1])
+        assert (int(k_stop), bool(any_term)) == (int(want[2]), bool(want[3]))
+
+
 @pytest.mark.parametrize("k", [1, 2, TILE - 1, TILE, TILE + 1, 2 * TILE, KW])
 def test_vectorized_matches_oracle(k):
     rng = np.random.default_rng(k)
