@@ -93,16 +93,19 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    cross-entropy of the forward phase's B4 logits on the same batch.
    Prints step time, tokens/s, peak memory, the model-FLOP share and a
    profiled fourth step.
-8. Print B4's time over SDPA's and B8's over ``torch.bmm``'s (prefill and
-   decode), each pair from this run, the ``kernels`` JSON line, the card
+8. Print B4's time over SDPA's, B8's over ``torch.bmm``'s and B7's over
+   ``torch.bmm(x, cat([w1, w3], -1))``'s (the two products alone, a
+   yardstick, not ``library_ms``: no one call computes B7), prefill and
+   decode, each pair from this run; the first versions' times of B5 and B7
+   (from PERF.md) beside this run's; the ``kernels`` JSON line, the card
    line, and last the ``ok`` line.
 
 Kernel device times come from ``torch.profiler``, summed over the kernels
-of the wrapper's own symbol (B4 ``flash_kernel``, B7 ``gmm_kernel``, B8
+of the wrapper's own symbol (B4 ``flash_kernel``, B7 ``gmm_up_kernel``, B8
 ``gmm_down_kernel``, ...); a trace with device time but none under that
 name fails, so a renamed kernel cannot pass as an event time.  The build
 lines print each kernel's ptxas registers and spills and the dynamic
-shared memory of B4 and B8.
+shared memory of B4, B7, B8 and B5.
 
 Exits non-zero without printing a result when CUDA is unavailable or when
 the ``src/repro_torch`` package is not beside this script.
@@ -192,6 +195,13 @@ TRAIN_CE_TOL = 1e-2
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12
+
+# the first versions' device times of the kernels rebuilt since, as
+# recorded in PERF.md (measured on one NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's
+FIRST_VERSION_MS = {"rwkv6_scan": 0.544,
+                    "moe_gmm": {"prefill": 0.810, "decode": 0.260}}
 
 
 def fail(msg: str) -> None:
@@ -817,10 +827,14 @@ def generate(torch, model, params, prompt, new: int):
 
 def gmm_times(torch, gmm, name, args, c_rows):
     """Kernel B7 or B8 alone on captured operands: device and call time,
-    the plain version's, torch.bmm's for B8, and the bound."""
+    the plain version's, the bound, torch.bmm's for B8 (``library_ms``) and,
+    for B7, ``torch.bmm(x, cat([w1, w3], -1))``: the two products alone, a
+    yardstick that no single PyTorch call matches (silu and the product are
+    left out), kept apart from ``library_ms``."""
     fn = getattr(gmm, name)
-    # B7 is `gmm_kernel<MT, 2>`, B8 the Hopper `gmm_down_kernel<MT>`
-    symbol = "gmm_down_kernel" if name == "moe_gmm_down" else "gmm_kernel"
+    # both are Hopper kernels of one template: `gmm_up_kernel<MT>` (B7) and
+    # `gmm_down_kernel<MT>` (B8)
+    symbol = "gmm_down_kernel" if name == "moe_gmm_down" else "gmm_up_kernel"
     call_ms, dev_ms = time_ms(lambda: fn(*args), (symbol,))
     plain_call_ms, plain_dev_ms = time_ms(lambda: fn(*args, backend="torch"),
                                           None)
@@ -832,20 +846,26 @@ def gmm_times(torch, gmm, name, args, c_rows):
     nops = 2 * n_w * E * C * K * N
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / BF16_OPS_PER_S * 1e3
-    lib_ms = None
+    ms = dev_ms if dev_ms is not None else call_ms
+    extra = {"library_ms": None}
     if name == "moe_gmm_down":
         lib_call_ms, lib_dev_ms = time_ms(lambda: torch.bmm(*args), None)
         lib_ms = lib_dev_ms if lib_dev_ms is not None else lib_call_ms
-    ms = dev_ms if dev_ms is not None else call_ms
+        extra.update(library_ms=lib_ms, ratio_to_library=ms / lib_ms)
+    else:
+        w13 = torch.cat(args[1:], -1)
+        bmm_call_ms, bmm_dev_ms = time_ms(lambda: torch.bmm(x, w13), None)
+        bmm_ms = bmm_dev_ms if bmm_dev_ms is not None else bmm_call_ms
+        extra.update(products_bmm_ms=bmm_ms, ratio_to_products_bmm=ms / bmm_ms)
+        del w13
     return dict(E=E, C=C, K=K, N=N, c_rows=c_rows, ms=ms,
-                ratio_to_library=ms / lib_ms if lib_ms else None,
                 ms_source="profiler" if dev_ms is not None else "events",
                 call_ms=call_ms,
                 plain_ms=plain_dev_ms if plain_dev_ms is not None
                 else plain_call_ms,
                 plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=nops, library_ms=lib_ms)
+                bytes=nbytes, ops=nops, **extra)
 
 
 def _layer_stack(cfg, params, cache):
@@ -976,27 +996,35 @@ def profile_decode(torch, model, params, prompt):
 
 
 def wkv_cost(B, S, H, D):
-    """(bytes, float32 operations) that one B5 call needs: each input read
-    once, each output written once; per (batch, head) and chunk of c real
-    rows, the cumsum, the c(c-1)/2 pairwise decays (a difference, an
-    exponential, two products and an add per channel) and their product
-    with v, the inter-chunk query and its (c x D) @ (D x D) product, the
-    bonus, and the state update with its (D x c) @ (c x D) product."""
+    """(bytes, TF32 tensor-core flops, float32 operations) that one B5 call
+    needs as the kernel computes it: each input read once, each output
+    written once; per (batch, head) and chunk (C = 32 rows, the last one
+    padded) the tensor-core products, three for each multiply-add of the
+    inter term (C x D x D) and the off-diagonal block (16 x 16 x D) and two
+    where one operand is bf16 v (att @ v over the 16 and 32 columns rows
+    0-15 and 16-31 see, the state update D x C x D); and the float32 work:
+    the cumsum's five scan steps, the per-element decays (r exp(cw_{i-1}),
+    q~ or k~, k exp(cw_C - cw): a difference, a scaling, an exponential
+    and a product each), the bonus, the pairwise decays of the two
+    diagonal 16 x 16 triangles (a difference, two clips, a scaling, an
+    exponential, a product and a multiply-add per channel), the operand
+    splits, and the state's decay."""
     from repro_torch.kernels.rwkv6_scan import CHUNK
     nbytes = 2 * 3 * B * S * H * D + 4 * B * S * H * D + 4 * H * D \
         + 4 * B * H * D * D + 4 * B * S * H * D + 4 * B * H * D * D
-    ops = 0
-    for t0 in range(0, S, CHUNK):
-        c = min(CHUNK, S - t0)
-        pairs = c * (c - 1) // 2
-        ops += (c * D                      # cumsum
-                + c * D + pairs * D * 5    # cw - w; pairwise decay terms
-                + 2 * pairs * D            # att @ v
-                + 3 * c * D + 2 * c * D * D  # r * exp(cw - w); @ s
-                + 3 * c * D + c * D        # bonus
-                + 2 * c * D                # inter + intra + bonus
-                + 3 * c * D + 2 * c * D * D + D + 2 * D * D)  # state
-    return nbytes, ops * B * H
+    C, sub = CHUNK, CHUNK // 2
+    chunks = -(-S // C)
+    macs3 = C * D * D + sub * sub * D
+    macs2 = (sub * sub + C * C // 2) * D + D * C * D
+    tf32 = 2 * (3 * macs3 + 2 * macs2)
+    pairs = 2 * sub * (sub - 1) // 2
+    fp32 = (5 * C * D                       # cumsum
+            + 4 * 3 * C * D                 # per-element decays
+            + 3 * C * D + 2 * C             # bonus
+            + 8 * pairs * D                 # pairwise decays
+            + 2 * 3 * (C * D + 2 * sub * D + C * C + C * D)  # operand splits
+            + D * D + C * D)                # state decay; out's sum
+    return nbytes, tf32 * chunks * B * H, fp32 * chunks * B * H
 
 
 def rglru_cost(B, S, R):
@@ -1016,13 +1044,16 @@ def rglru_cost(B, S, R):
 
 def scan_times(torch, fn, args, knames, cost):
     """A scan kernel alone on captured inputs: device and call time, the
-    plain version's, and the bound."""
+    plain version's, and the bound: bytes at the memory rate against the
+    operations at their type's peak (``cost`` is (bytes, float32 ops) or
+    (bytes, TF32 tensor flops, float32 ops))."""
     call_ms, dev_ms = time_ms(lambda: fn(*args), knames)
     plain_call_ms, plain_dev_ms = time_ms(lambda: fn(*args, backend="torch"),
                                           None)
-    nbytes, nops = cost
+    nbytes, *ops = cost
+    tf32, fp32 = ops if len(ops) == 2 else (0, ops[0])
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = (tf32 / TF32_OPS_PER_S + fp32 / FP32_OPS_PER_S) * 1e3
     return dict(shape=list(args[0].shape),
                 ms=dev_ms if dev_ms is not None else call_ms,
                 ms_source="profiler" if dev_ms is not None else "events",
@@ -1031,7 +1062,8 @@ def scan_times(torch, fn, args, knames, cost):
                 else plain_call_ms,
                 plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                bytes=nbytes, ops=nops, library_ms=None)
+                bytes=nbytes, ops=tf32 + fp32, tf32_flops=tf32,
+                fp32_ops=fp32, library_ms=None)
 
 
 def hold_gmm(torch, arch, captured, c_prefill, c_decode):
@@ -1613,16 +1645,23 @@ def train_phase(torch, forward_ce: float):
 
 
 def hopper_smem_line() -> str:
-    """The dynamic shared memory of B4 and B8 by configuration (ptxas
-    reports static shared memory only)."""
+    """The dynamic shared memory of B4, B7, B8 and B5 by configuration
+    (ptxas reports static shared memory only)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.kernels import rwkv6_scan as wkv
     b4 = ", ".join(f"D={d}: {fa.launch_plan(1, 128, 1, d).smem_bytes}"
                    for d in fa.HEAD_DIMS)
-    b8 = ", ".join(f"{t} m64 tiles: {gmm.down_plan(1, 64 * t, 64, 128, 1).smem_bytes}"
-                   for t in (1, 2, 4))
+    gmm_line = {
+        kernel: ", ".join(
+            f"{t} m64 tiles: "
+            f"{gmm.gmm_plan(1, 64 * t, 64, 128, 1, up=up).smem_bytes}"
+            for t in (1, 2, 4))
+        for kernel, up in (("gmm_up_kernel", True), ("gmm_down_kernel", False))}
+    b5 = ", ".join(f"D={d}: {wkv.smem_bytes(d)}" for d in wkv.CUDA_HEAD_DIMS)
     return (f"dynamic shared memory a block (bytes): flash_kernel {b4}; "
-            f"gmm_down_kernel {b8}")
+            + "; ".join(f"{k} {v}" for k, v in gmm_line.items())
+            + f"; wkv_kernel {b5}")
 
 
 def main() -> None:
@@ -1720,11 +1759,22 @@ def main() -> None:
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **t})
+    b7 = timings["moe_gmm"]["shapes"]
     b8 = timings["moe_gmm_down"]["shapes"]
+    old = FIRST_VERSION_MS
     print("same-run ratios: B4/SDPA {:.3f}; B8/bmm prefill {:.3f}, decode "
-          "{:.3f}".format(timings["flash_attention"]["ratio_to_library"],
-                          b8["prefill"]["ratio_to_library"],
-                          b8["decode"]["ratio_to_library"]))
+          "{:.3f}; B7/bmm-products prefill {:.3f}, decode {:.3f}".format(
+              timings["flash_attention"]["ratio_to_library"],
+              b8["prefill"]["ratio_to_library"],
+              b8["decode"]["ratio_to_library"],
+              b7["prefill"]["ratio_to_products_bmm"],
+              b7["decode"]["ratio_to_products_bmm"]))
+    print("first version (PERF.md) -> this run, device ms: "
+          "B5 {:.4f} -> {:.4f}; B7 prefill {:.4f} -> {:.4f}, decode {:.4f} "
+          "-> {:.4f}".format(
+              old["rwkv6_scan"], timings["rwkv6_scan"]["ms"],
+              old["moe_gmm"]["prefill"], b7["prefill"]["ms"],
+              old["moe_gmm"]["decode"], b7["decode"]["ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

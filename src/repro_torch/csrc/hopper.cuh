@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels B4
-// (flash_attention.cu) and B8 (moe_gmm.cu): mbarriers, TMA tile loads,
+// (flash_attention.cu), B7 and B8 (moe_gmm.cu), and B5 (rwkv6_scan.cu,
+// shared-memory addresses only): mbarriers, TMA tile loads,
 // wgmma descriptors and products, register hand-off between warpgroups,
 // named barriers, and the host-side tensor-map encoding.
 //

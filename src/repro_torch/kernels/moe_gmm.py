@@ -13,14 +13,16 @@ dtype.  Two versions of each, one contract:
   :func:`_moe_gmm_down_torch`): upcast to float32, ``torch.einsum``, silu
   and multiply, one cast.  CPU tensors take it and ``backend="torch"``
   forces it;
-- the CUDA kernels B7/B8, ``csrc/moe_gmm.cu``, which CUDA tensors take.
-  B7: bf16 tiles in shared memory through cp.async, ``mma.sync`` bf16
-  products with float32 accumulators.  B8 (Hopper): each (expert, 128
-  output columns) tile is owned by one block with all its rows, so each w2
-  byte is read once; the grid is persistent (one block an SM); a producer
-  thread keeps a ring of TMA loads in flight and two consumer warpgroups
-  run ``wgmma``.  Its launch geometry is planned here
-  (:func:`down_plan`), where the CPU tests can check it.
+- the CUDA kernels B7/B8, ``csrc/moe_gmm.cu``, which CUDA tensors take:
+  one Hopper template for both.  Both are bound by bytes (B7 moves 844 MB
+  at DeepSeek-V2-Lite's prefill, C = 240, and 742 MB at decode, C = 8), so
+  each output tile (one expert's ``UP_COLS`` = 64 columns of w1 and of w3
+  for B7, ``DOWN_COLS`` = 128 columns of w2 for B8) is owned by one block
+  with all its rows and each weight byte is read once; the grid is
+  persistent (one block an SM); a producer thread keeps a ring of TMA
+  loads in flight and two consumer warpgroups run ``wgmma``, B7 computing
+  ``[x @ w1 | x @ w3]`` side by side in one product.  The launch geometry
+  is planned here (:func:`gmm_plan`), where the CPU tests can check it.
 
 They agree to float32 summation order: the kernel adds its products in
 another order than the float32 einsum, so an element can land one bf16
@@ -40,14 +42,15 @@ import torch.nn.functional as F_
 
 from . import _build
 
-_SIGNATURES = {"moe_gmm_up_launch": (4, 4), "moe_gmm_down_launch": (3, 6)}
+_SIGNATURES = {"moe_gmm_up_launch": (4, 6), "moe_gmm_down_launch": (3, 6)}
 
-# B8's launch geometry (csrc/moe_gmm.cu, namespace ``down``)
-DOWN_COLS = 128          # output columns a block
-DOWN_DEPTH = 64          # contraction steps a ring stage (one swizzle row)
-DOWN_ROW_TILE = 64       # rows of one wgmma tile
-DOWN_MAX_TILES = 4       # m64 tiles a row group: two per consumer warpgroup
-DOWN_STAGES = {1: 8, 2: 6, 4: 4}   # ring depth by m64 tiles a row group
+# B7's and B8's launch geometry (csrc/moe_gmm.cu)
+GMM_DEPTH = 64           # contraction steps a ring stage (one swizzle row)
+GMM_ROW_TILE = 64        # rows of one wgmma tile
+GMM_MAX_TILES = 4        # m64 tiles a row group: two per consumer warpgroup
+GMM_STAGES = {1: 8, 2: 6, 4: 4}   # ring depth by m64 tiles a row group
+UP_COLS = 64             # B7: output columns a tile (w1's box beside w3's)
+DOWN_COLS = 128          # B8: output columns a tile (two boxes of w2)
 
 
 # ---------------------------------------------------------------------------
@@ -66,59 +69,63 @@ def _moe_gmm_down_torch(h, w2):
 
 
 # ---------------------------------------------------------------------------
-# B8's launch plan
+# B7's and B8's launch plan
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
-class DownPlan:
-    """Where B8's blocks go for (E, C, F) x (E, F, D).
+class GmmPlan:
+    """Where B7's or B8's blocks go for (E, C, K) x (E, K, N).
 
-    The output falls into ``tiles`` = E x ``col_tiles`` tiles of
-    ``DOWN_COLS`` columns of one expert, all C rows each (tile t: expert
-    t // col_tiles, columns ``DOWN_COLS * (t % col_tiles)``).  The grid is
-    persistent: ``blocks`` blocks, at most one an SM, block x taking tiles
-    x, x + blocks, ...  A tile's rows run in ``row_groups`` groups of
-    ``row_tiles`` m64 tiles, its contraction in ``DOWN_DEPTH`` steps through
-    a ring of ``stages``.  ``h_box`` and ``w_box`` are the TMA boxes,
-    innermost first, over h as (F, C, E) and w2 as (D, F, E) (w2's 128
-    columns take two boxes); ``smem_bytes`` the dynamic shared memory a
-    block asks for (the ring, its barriers, 1024 bytes of alignment).
+    The output falls into ``tiles`` = E x ``col_tiles`` tiles of ``cols``
+    columns of one expert, all C rows each (tile t: expert t // col_tiles,
+    columns ``cols * (t % col_tiles)``).  The grid is persistent: ``blocks``
+    blocks, at most one an SM, block x taking tiles x, x + blocks, ...  A
+    tile's rows run in ``row_groups`` groups of ``row_tiles`` m64 tiles,
+    its contraction in ``GMM_DEPTH`` steps through a ring of ``stages``.
+    ``a_box`` and ``w_box`` are the TMA boxes, innermost first, over the
+    activations as (K, C, E) and each weight as (N, K, E); a stage holds
+    one activation box and two weight boxes (B8: w2's columns n0 and n0 +
+    64; B7: w1's and w3's columns n0).  ``smem_bytes`` is the dynamic
+    shared memory a block asks for (the ring, its barriers, 1024 bytes of
+    alignment).
     """
 
     blocks: int
+    cols: int
     col_tiles: int
     tiles: int
     row_tiles: int
     row_groups: int
     stages: int
-    h_box: tuple[int, int, int]
+    a_box: tuple[int, int, int]
     w_box: tuple[int, int, int]
     smem_bytes: int
 
 
-def down_plan(E: int, C: int, F: int, D: int, sms: int) -> DownPlan:
-    """B8's grid on a card of ``sms`` SMs, its row tiling, ring depth and
-    TMA boxes (see :class:`DownPlan`)."""
-    tiles = min(DOWN_MAX_TILES, max(1, math.ceil(C / DOWN_ROW_TILE)))
+def gmm_plan(E: int, C: int, K: int, N: int, sms: int, *, up: bool) -> GmmPlan:
+    """B7's (``up``) or B8's grid on a card of ``sms`` SMs, its row tiling,
+    ring depth and TMA boxes (see :class:`GmmPlan`)."""
+    tiles = min(GMM_MAX_TILES, max(1, math.ceil(C / GMM_ROW_TILE)))
     tiles = 1 << (tiles - 1).bit_length()            # 1, 2 or 4
-    rows = tiles * DOWN_ROW_TILE
-    stages = DOWN_STAGES[tiles]
-    stage = 2 * DOWN_DEPTH * (rows + DOWN_COLS)
-    col_tiles = math.ceil(D / DOWN_COLS)
-    return DownPlan(blocks=max(1, min(E * col_tiles, sms)),
-                    col_tiles=col_tiles, tiles=E * col_tiles, row_tiles=tiles,
-                    row_groups=math.ceil(C / rows), stages=stages,
-                    h_box=(DOWN_DEPTH, rows, 1), w_box=(64, DOWN_DEPTH, 1),
-                    smem_bytes=1024 + stages * stage + 2 * stages * 8)
+    rows = tiles * GMM_ROW_TILE
+    stages = GMM_STAGES[tiles]
+    stage = 2 * GMM_DEPTH * (rows + 2 * 64)
+    cols = UP_COLS if up else DOWN_COLS
+    col_tiles = math.ceil(N / cols)
+    return GmmPlan(blocks=max(1, min(E * col_tiles, sms)), cols=cols,
+                   col_tiles=col_tiles, tiles=E * col_tiles, row_tiles=tiles,
+                   row_groups=math.ceil(C / rows), stages=stages,
+                   a_box=(GMM_DEPTH, rows, 1), w_box=(64, GMM_DEPTH, 1),
+                   smem_bytes=1024 + stages * stage + 2 * stages * 8)
 
 
-def down_block_work(plan: DownPlan, C: int, D: int, x: int):
+def gmm_block_work(plan: GmmPlan, C: int, N: int, x: int):
     """What block x of ``plan`` stores, indexed as the kernel does: one
     ``(expert, row ranges, column range)`` per output tile it takes, with
     one row range per m64 tile that a consumer warpgroup holds (consumer c
     takes tiles c and c + 2 of each row group), clipped to C, and the
-    columns clipped to D."""
-    rows = plan.row_tiles * DOWN_ROW_TILE
+    columns clipped to N."""
+    rows = plan.row_tiles * GMM_ROW_TILE
     consumers = min(2, plan.row_tiles)
     work = []
     for tile in range(x, plan.tiles, plan.blocks):
@@ -127,12 +134,32 @@ def down_block_work(plan: DownPlan, C: int, D: int, x: int):
         for rg in range(plan.row_groups):
             for c in range(consumers):
                 for i in range((plan.row_tiles + 1) // 2):
-                    r0 = rg * rows + (c + 2 * i) * DOWN_ROW_TILE
+                    r0 = rg * rows + (c + 2 * i) * GMM_ROW_TILE
                     row_tiles.append(range(min(r0, C),
-                                           min(r0 + DOWN_ROW_TILE, C)))
-        n0 = col * DOWN_COLS
-        work.append((e, row_tiles, range(min(n0, D), min(n0 + DOWN_COLS, D))))
+                                           min(r0 + GMM_ROW_TILE, C)))
+        n0 = col * plan.cols
+        work.append((e, row_tiles, range(min(n0, N), min(n0 + plan.cols, N))))
     return work
+
+
+def acc_position(t: int, i: int) -> tuple[int, int]:
+    """(row, column) in a 64 x 128 float32 wgmma tile of accumulator
+    register ``i`` of thread ``t`` of the warpgroup (``hopper.cuh``)."""
+    return (16 * (t // 32) + (t % 32) // 4 + 8 * ((i // 2) % 2),
+            8 * (i // 4) + 2 * (t % 4) + i % 2)
+
+
+def up_epilogue(t: int):
+    """What B7's epilogue of thread ``t`` stores, in the kernel's order:
+    ``(row, column, w1 register, w3 register)`` of a 64-row, 64-column
+    output tile, the w1 product in columns 0-63 of the accumulator and the
+    w3 product in columns 64-127."""
+    row0 = 16 * (t // 32) + (t % 32) // 4
+    for half in range(2):
+        for j in range(UP_COLS // 8):
+            for q in range(2):
+                k = 4 * j + 2 * half + q
+                yield row0 + 8 * half, 8 * j + 2 * (t % 4) + q, k, k + 32
 
 
 def _pad_last(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -168,6 +195,32 @@ def _check(x, ws, names, x_shape, w_shape, device, cuda: bool):
         _build.expect(w, name, w_shape, dtypes, device)
 
 
+def _run_tiles(fn_name: str, out, a, ws, *, up: bool) -> bool:
+    """Launch B7 (``up``) or B8 into ``out`` (E, C, N) from ``a`` (E, C, K)
+    and the weights ``ws`` (E, K, N); False, with ``out`` zeroed and nothing
+    launched, when K is 0 (the empty sum).  TMA reads rows of 16-byte multiples
+    from 16-byte boundaries: other shapes (K or N not a multiple of 8) or
+    offsets are zero-padded into fresh buffers first, which adds zeros to
+    every sum (and silu(0) * 0 = 0 to B7's padded columns, cut off)."""
+    E, C, K = a.shape
+    N = out.shape[-1]
+    if K == 0:
+        out.zero_()
+        return False
+    Kp, Np = -(-K // 8) * 8, -(-N // 8) * 8
+    if not _build.tma_ready(a):
+        a = _pad_last(a, Kp)
+    if Kp != K or not all(_build.tma_ready(w) for w in ws):
+        ws = [_pad_last(F_.pad(w, (0, 0, 0, Kp - K)), Np) for w in ws]
+    res = out if Np == N else torch.empty((E, C, Np), dtype=out.dtype,
+                                          device=out.device)
+    plan = gmm_plan(E, C, Kp, Np, _sm_count(out.device), up=up)
+    _launch(fn_name, res, (a, *ws), (E, C, Kp, Np, plan.row_tiles, plan.blocks))
+    if res is not out:
+        out.copy_(res[..., :N])
+    return True
+
+
 def moe_gmm(x, w1, w3, *, backend: str | None = None):
     """Gated expert up-projection (kernel B7).
 
@@ -175,6 +228,8 @@ def moe_gmm(x, w1, w3, *, backend: str | None = None):
     and contiguous -> ``silu(x @ w1) * (x @ w3)``: (E, C, F) in that dtype.
     CPU tensors take the plain version, CUDA tensors launch the kernel
     (bf16 only) or raise; ``backend="torch"`` forces the plain version.
+    D or F not a multiple of 8, or misaligned operands, are zero-padded
+    into fresh buffers first (see :func:`_run_tiles`).
     """
     _build.forbid_autograd("moe_gmm (B7)", x, w1, w3)
     E, C, D = x.shape
@@ -185,8 +240,8 @@ def moe_gmm(x, w1, w3, *, backend: str | None = None):
     if not cuda:
         return _moe_gmm_torch(x, w1, w3)
     out = torch.empty((E, C, Fh), dtype=x.dtype, device=dev)
-    if out.numel():
-        _launch("moe_gmm_up_launch", out, (x, w1, w3), (E, C, D, Fh))
+    if out.numel() and _run_tiles("moe_gmm_up_launch", out, x, (w1, w3),
+                                  up=True):
         moe_gmm.launches += 1
     return out
 
@@ -194,10 +249,8 @@ def moe_gmm(x, w1, w3, *, backend: str | None = None):
 def moe_gmm_down(h, w2, *, backend: str | None = None):
     """Expert down-projection (kernel B8).
 
-    ``h``: (E, C, F); ``w2``: (E, F, D) -> ``h @ w2``: (E, C, D), routed as
-    :func:`moe_gmm`.  TMA reads rows of 16-byte multiples from 16-byte
-    boundaries: other shapes (F or D not a multiple of 8) or offsets are
-    zero-padded into fresh buffers first, which adds zeros to every sum.
+    ``h``: (E, C, F); ``w2``: (E, F, D) -> ``h @ w2``: (E, C, D), routed and
+    padded as :func:`moe_gmm`.
     """
     _build.forbid_autograd("moe_gmm_down (B8)", h, w2)
     E, C, Fh = h.shape
@@ -208,22 +261,9 @@ def moe_gmm_down(h, w2, *, backend: str | None = None):
     if not cuda:
         return _moe_gmm_down_torch(h, w2)
     out = torch.empty((E, C, D), dtype=h.dtype, device=dev)
-    if not out.numel():
-        return out
-    if Fh == 0:                       # no contraction: the empty sum
-        return out.zero_()
-    Fp, Dp = -(-Fh // 8) * 8, -(-D // 8) * 8
-    if not _build.tma_ready(h):
-        h = _pad_last(h, Fp)
-    if not _build.tma_ready(w2) or Fp != Fh:
-        w2 = _pad_last(F_.pad(w2, (0, 0, 0, Fp - Fh)), Dp)
-    res = out if Dp == D else torch.empty((E, C, Dp), dtype=h.dtype, device=dev)
-    plan = down_plan(E, C, Fp, Dp, _sm_count(dev))
-    _launch("moe_gmm_down_launch", res, (h, w2),
-            (E, C, Fp, Dp, plan.row_tiles, plan.blocks))
-    moe_gmm_down.launches += 1
-    if res is not out:
-        out.copy_(res[..., :D])
+    if out.numel() and _run_tiles("moe_gmm_down_launch", out, h, (w2,),
+                                  up=False):
+        moe_gmm_down.launches += 1
     return out
 
 

@@ -17,12 +17,16 @@ v``.  Two versions, one contract:
   CPU tensors take it at the Pallas chunk ``min(CHUNK, S)`` and
   ``backend="torch"`` forces it;
 - the CUDA kernel B5, ``csrc/rwkv6_scan.cu``, which CUDA tensors take: one
-  block per (batch, head), the state in shared memory, the chunk's
-  contractions as plain float32 loops.
+  block per (batch, head), the next chunk prefetched under this one, the
+  cumsum a warp scan, the chunk split into two sub-chunks of 16 rows so
+  that the decay between them factors with exponents <= 0 (no overflow at
+  any decay), and the contractions as 3xTF32 tensor-core products; the
+  state stays in registers.
 
 They agree to float32 rounding, not bit for bit: the in-chunk cumsum and
-the three contractions sum in another order, and float32 ``exp`` differs by
-an ulp between libraries.  ``tests/test_torch_rwkv6.py`` and
+the contractions sum in another order, the products split each float32
+into two TF32 parts (about float32 accuracy), and the kernel's exponential
+is ``ex2.approx``.  ``tests/test_torch_rwkv6.py`` and
 ``chip_smoke.py`` state the tolerance (relative to ``max|plain|``).
 """
 from __future__ import annotations
@@ -35,6 +39,19 @@ CHUNK = 32                      # the Pallas kernel's chunk (``ops.rwkv6_scan``)
 CUDA_HEAD_DIMS = (16, 32, 64)   # head sizes the CUDA kernel is built for
 
 _SIGNATURES = {"rwkv6_scan_launch": (8, 4)}
+
+
+def smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one B5 block at head size ``D`` (the
+    kernel's ``Layout<D>``): the cumsum (C x (D + 4) float32), three C x D
+    float32 arrays and the D x D state at a row pitch of max(D, 32), att
+    and the off-diagonal block's second half (C x C each), the bonus
+    partials, exp(cw_C) and u, and two raw chunks (bf16 r, k, v and
+    float32 log_w)."""
+    pitch = max(D, 32)
+    floats = (CHUNK * (D + 4) + 3 * CHUNK * pitch + D * pitch
+              + 2 * CHUNK * CHUNK + D // 8 * CHUNK + 2 * D)
+    return 4 * floats + 2 * (3 * CHUNK * D * 2 + CHUNK * D * 4)
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +112,11 @@ def _rwkv6_scan_cuda(r, k, v, log_w, u, s0):
     dev = r.device
     out = torch.empty((B, S, H, D), dtype=torch.float32, device=dev)
     s_final = torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+    if B * H == 0:
+        return out, s_final
+    # the kernel copies rows in 16-byte pieces from 16-byte boundaries
+    r, k, v, log_w = (t if t.data_ptr() % 16 == 0 else t.clone()
+                      for t in (r, k, v, log_w))
     lib = _build.library("rwkv6_scan", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

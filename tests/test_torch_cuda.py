@@ -10,8 +10,9 @@ version's op order, so their outputs must be bit-identical.  B7/B8 (the
 MoE grouped matmuls) sum in the tensor cores' order, so every element must
 lie within one bf16 ulp of the plain version's float32 einsum, or within
 1e-3 * max|plain|.  B5 (the WKV6 scan) sums its chunk's cumsum and
-contractions in another order than the plain version: outputs and states
-within 1e-4 * max|plain|.  B6 (the RG-LRU scan) keeps the plain version's
+contractions in another order than the plain version, on 3xTF32 tensor-core
+products with ex2.approx exponentials: outputs and states within 1e-4 *
+max|plain|, also over the model's whole decay range.  B6 (the RG-LRU scan) keeps the plain version's
 doubling order and is built with ``--fmad=false``: bit-identical.  B4 (flash
 attention) sums its products in the tensor cores' order: every element
 within one bf16 ulp of the plain version, or within 1e-3 * max|plain|.
@@ -229,7 +230,7 @@ def test_rolling_archive_on_the_card_matches_cpu(cuda):
     (8, 240, 2048, 1408),    # prefill rows (eight of the 64 experts)
     (3, 20, 200, 72),        # tails in C, D and F
     (2, 33, 136, 264),       # C between the tile heights
-    (2, 5, 37, 19),          # rows not 16-byte aligned: B7 loads element-wise, B8 pads
+    (2, 5, 37, 19),          # rows not 16-byte aligned: both wrappers pad
 ])
 def test_moe_gmm_kernels_match_plain_versions(cuda, E, C, D, F):
     g = torch.Generator(device=cuda).manual_seed(E * C + D)
@@ -266,6 +267,27 @@ def test_moe_gmm_down_kernel_matches_plain_version(cuda, C, F, D):
     h_off = torch.empty(E * C * F + 1, dtype=torch.bfloat16, device=cuda)[1:]
     h_off = h_off.view(E, C, F).copy_(h)
     assert torch.equal(tgmm.moe_gmm_down(h_off, w2), y)
+
+
+@pytest.mark.parametrize("C", [8, 17, 240, 300])
+@pytest.mark.parametrize("D,F", [(1416, 200), (200, 1416), (72, 36)])
+def test_moe_gmm_up_kernel_matches_plain_version(cuda, C, D, F):
+    # D and F no multiples of B7's 64-deep stages or 64-column tiles; C
+    # from decode's one m64 tile to two row groups; (72, 36) pads F to 40
+    E = 3
+    g = torch.Generator(device=cuda).manual_seed(C * D + F)
+    x = torch.randn(E, C, D, generator=g, device=cuda).to(torch.bfloat16)
+    w1, w3 = ((torch.randn(E, D, F, generator=g, device=cuda) * D ** -0.5).to(
+        torch.bfloat16) for _ in range(2))
+    before = tgmm.moe_gmm.launches
+    h = tgmm.moe_gmm(x, w1, w3)
+    torch.cuda.synchronize()
+    assert tgmm.moe_gmm.launches == before + 1
+    assert_within_ulp(h, tgmm.moe_gmm(x, w1, w3, backend="torch"))
+    # an operand that starts off a 16-byte boundary is copied, not misread
+    x_off = torch.empty(E * C * D + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    x_off = x_off.view(E, C, D).copy_(x)
+    assert torch.equal(tgmm.moe_gmm(x_off, w1, w3), h)
 
 
 def test_reduced_lm_on_the_card_matches_cpu(cuda):
@@ -315,6 +337,32 @@ def test_rwkv6_scan_kernel_matches_plain_version(cuda, B, S, H, D):
     assert twkv.rwkv6_scan.launches == before + 1
     p_out, p_s = twkv.rwkv6_scan(r, k, v, log_w, u, s0, backend="torch")
     for got, want in ((out, p_out), (s_final, p_s)):
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("B,S,H,D", [
+    (16, 128, 64, 64),   # rwkv6-7b's prefill at the serving shape
+    (2, 77, 3, 64),      # S not a multiple of the chunk
+])
+def test_rwkv6_scan_kernel_over_the_full_decay_range(cuda, B, S, H, D):
+    # log_w over the model's whole clamp range, -exp(U(-8, 4)), with every
+    # seventh step at -exp(4): chunk cumsums pass -88, where a decay
+    # factored against the chunk start would overflow float32
+    rng = np.random.default_rng(B * S + D)
+    f32 = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)  # noqa: E731
+    r, k, v = (f32(rng.standard_normal((B, S, H, D)) * 0.5).to(torch.bfloat16)
+               for _ in range(3))
+    lw = -np.exp(rng.uniform(-8.0, 4.0, (B, S, H, D)))
+    lw[:, ::7] = -np.exp(4.0)
+    log_w = f32(lw)
+    u, s0 = f32(rng.standard_normal((H, D)) * 0.5), f32(
+        rng.standard_normal((B, H, D, D)) * 0.1)
+    assert float(torch.cumsum(log_w[:, :32], 1).min()) < -88.0
+    out, s_final = twkv.rwkv6_scan(r, k, v, log_w, u, s0)
+    torch.cuda.synchronize()
+    p_out, p_s = twkv.rwkv6_scan(r, k, v, log_w, u, s0, backend="torch")
+    for got, want in ((out, p_out), (s_final, p_s)):
+        assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 

@@ -1,13 +1,16 @@
-"""Launch geometry of the Hopper kernels B4 and B8, checked on the CPU.
+"""Launch geometry of the Hopper kernels B4, B7 and B8, checked on the CPU.
 
 The kernels take their grid from the wrappers' plans
-(``flash_attention.launch_plan``, ``moe_gmm.down_plan``) and index their
-blocks as ``block_work`` / ``down_block_work`` describe.  Every (batch,
-head, query row) of B4 and every (expert, row, column) of B8 must be
-stored by exactly one block, at ragged S, C and D; B4's key tiles must hold
-every key a row attends to; the TMA boxes and alignment rules must match
-what the kernels load.  Also: a change to a shared header ``csrc/*.cuh``
-must change the name of every library built from the sources.
+(``flash_attention.launch_plan``, ``moe_gmm.gmm_plan``) and index their
+blocks as ``block_work`` / ``gmm_block_work`` describe.  Every (batch,
+head, query row) of B4 and every (expert, row, column) of B7 and B8 must
+be stored by exactly one block, at ragged S, C, F and D, and each weight
+byte of B7 and B8 loaded once per row group (once a launch at C <= 256);
+B4's key tiles must hold every key a row attends to; the TMA boxes and
+alignment rules must match what the kernels load; B7's epilogue must pair
+w1's and w3's accumulators of one column.  Also: a change to a shared
+header ``csrc/*.cuh`` must change the name of every library built from the
+sources.
 """
 import shutil
 
@@ -18,6 +21,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm as tgmm
+from repro_torch.kernels import rwkv6_scan as twkv
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", [
@@ -63,45 +67,96 @@ def test_flash_plan_covers_every_row_once(B, S, H, KV, D, causal):
         for x in range(plan.grid[0]) for y in range(plan.grid[1]))
 
 
-@pytest.mark.parametrize("E,C,F,D", [
-    (64, 240, 1408, 2048),     # DeepSeek-V2-Lite prefill
+def _check_gmm_plan(E, C, K, N, sms, up):
+    plan = tgmm.gmm_plan(E, C, K, N, sms, up=up)
+    assert plan.row_tiles in (1, 2, 4)
+    rows = plan.row_tiles * tgmm.GMM_ROW_TILE
+    assert rows * plan.row_groups >= C > rows * (plan.row_groups - 1)
+    if plan.row_groups == 1:       # no more tiles than the rows need
+        assert rows // 2 < max(C, 64)
+    assert plan.cols == (tgmm.UP_COLS if up else tgmm.DOWN_COLS)
+    assert plan.col_tiles == -(-N // plan.cols)
+    assert plan.tiles == E * plan.col_tiles
+    assert plan.blocks == min(plan.tiles, sms)
+    assert plan.stages == tgmm.GMM_STAGES[plan.row_tiles]
+    assert plan.a_box == (tgmm.GMM_DEPTH, rows, 1)
+    assert plan.w_box == (64, tgmm.GMM_DEPTH, 1)
+    # two weight boxes a stage: B8's 128 columns, or w1's and w3's 64
+    assert (1 if up else 2) * plan.w_box[0] == plan.cols and rows <= 256
+    # the ring, its barriers and the alignment slack fit a block's 227 KB
+    stage = 2 * (rows * tgmm.GMM_DEPTH + 2 * tgmm.GMM_DEPTH * plan.w_box[0])
+    assert plan.smem_bytes == plan.stages * stage + 1024 + 16 * plan.stages
+    assert plan.smem_bytes <= 232448
+    seen = np.zeros((E, C, N), np.int64)
+    weight_loads = np.zeros((E, plan.col_tiles), np.int64)
+    per_block = []
+    for x in range(plan.blocks):
+        work = tgmm.gmm_block_work(plan, C, N, x)
+        per_block.append(len(work))
+        for e, tiles, cols in work:
+            # the producer loads the tile's weight boxes once a row group
+            weight_loads[e, cols.start // plan.cols] += plan.row_groups
+            assert all(len(t) <= tgmm.GMM_ROW_TILE for t in tiles)
+            for t in tiles:
+                seen[e, t.start:t.stop, cols.start:cols.stop] += 1
+    assert (seen == 1).all()
+    assert (weight_loads == plan.row_groups).all()
+    if C <= 256:                   # every weight byte leaves memory once
+        assert (weight_loads == 1).all()
+    assert max(per_block) - min(per_block) <= 1      # balanced over blocks
+
+
+_GMM_CASES = [
+    (64, 240, 1408, 2048),     # DeepSeek-V2-Lite prefill (B8's F, D)
     (64, 8, 1408, 2048),       # its decode
     (3, 17, 1416, 200),
     (3, 300, 200, 1416),
     (2, 64, 64, 128),
     (2, 129, 72, 40),
     (1, 513, 8, 8),
-])
+]
+
+
+@pytest.mark.parametrize("E,C,F,D", _GMM_CASES)
 @pytest.mark.parametrize("sms", [132, 7])
 def test_down_plan_covers_every_output_once(E, C, F, D, sms):
-    plan = tgmm.down_plan(E, C, F, D, sms)
-    assert plan.row_tiles in (1, 2, 4)
-    rows = plan.row_tiles * tgmm.DOWN_ROW_TILE
-    assert rows * plan.row_groups >= C > rows * (plan.row_groups - 1)
-    if plan.row_groups == 1:       # no more tiles than the rows need
-        assert rows // 2 < max(C, 64)
-    assert plan.col_tiles == -(-D // tgmm.DOWN_COLS)
-    assert plan.tiles == E * plan.col_tiles
-    assert plan.blocks == min(plan.tiles, sms)
-    assert plan.stages == tgmm.DOWN_STAGES[plan.row_tiles]
-    assert plan.h_box == (tgmm.DOWN_DEPTH, rows, 1)
-    assert plan.w_box == (64, tgmm.DOWN_DEPTH, 1)
-    assert 2 * plan.w_box[0] == tgmm.DOWN_COLS and rows <= 256
-    # the ring, its barriers and the alignment slack fit a block's 227 KB
-    stage = 2 * (rows * tgmm.DOWN_DEPTH + tgmm.DOWN_DEPTH * tgmm.DOWN_COLS)
-    assert plan.smem_bytes == plan.stages * stage + 1024 + 16 * plan.stages
-    assert plan.smem_bytes <= 232448
-    seen = np.zeros((E, C, D), np.int64)
-    per_block = []
-    for x in range(plan.blocks):
-        work = tgmm.down_block_work(plan, C, D, x)
-        per_block.append(len(work))
-        for e, tiles, cols in work:
-            assert all(len(t) <= tgmm.DOWN_ROW_TILE for t in tiles)
-            for t in tiles:
-                seen[e, t.start:t.stop, cols.start:cols.stop] += 1
-    assert (seen == 1).all()
-    assert max(per_block) - min(per_block) <= 1      # balanced over blocks
+    _check_gmm_plan(E, C, F, D, sms, up=False)
+
+
+@pytest.mark.parametrize("E,C,D,F", _GMM_CASES + [
+    (64, 8, 2048, 1408),       # DeepSeek-V2-Lite's decode (B7's D, F)
+    (64, 240, 2048, 1408),     # its prefill
+    (64, 300, 2048, 1408),     # two row groups
+])
+@pytest.mark.parametrize("sms", [132, 7])
+def test_up_plan_covers_every_output_once(E, C, D, F, sms):
+    _check_gmm_plan(E, C, D, F, sms, up=True)
+
+
+def test_up_epilogue_pairs_w1_and_w3_columns():
+    # B7's one m64n128 product holds x @ w1 in columns 0-63 and x @ w3 in
+    # columns 64-127; each thread must find column c of both in its own
+    # registers, 32 apart, and the 128 threads store the 64 x 64 tile once
+    stored = np.zeros((64, tgmm.UP_COLS), np.int64)
+    for t in range(128):
+        owned = {tgmm.acc_position(t, i) for i in range(64)}
+        assert len(owned) == 64
+        for row, col, a, b in tgmm.up_epilogue(t):
+            assert b - a == 32
+            assert tgmm.acc_position(t, a) == (row, col)
+            assert tgmm.acc_position(t, b) == (row, col + tgmm.UP_COLS)
+            stored[row, col] += 1
+    assert (stored == 1).all()
+
+
+def test_wkv_blocks_fit_two_to_an_sm():
+    # B5 asks for two 256-thread blocks an SM (__launch_bounds__(256, 2)):
+    # each block's dynamic shared memory plus the 1 KB the card reserves
+    # for it must fit the SM's 228 KB twice, and one block the 227 KB limit
+    for D in twkv.CUDA_HEAD_DIMS:
+        assert 2 * (twkv.smem_bytes(D) + 1024) <= 233472
+        assert twkv.smem_bytes(D) <= 232448
+    assert twkv.smem_bytes(64) == 100352
 
 
 def test_tma_alignment_rules():
@@ -129,11 +184,29 @@ def test_padded_down_projection_adds_only_zeros():
                        tgmm._moe_gmm_down_torch(h, w2))
 
 
+def test_padded_up_projection_adds_only_zeros():
+    # as for B8: zero rows of w1 / w3 and zero columns of x add nothing, and
+    # the padded output columns (silu(0) * 0) are cut off
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(2, 5, 13, generator=g).to(torch.bfloat16)
+    w1, w3 = (torch.randn(2, 13, 11, generator=g).to(torch.bfloat16)
+              for _ in range(2))
+    xp = tgmm._pad_last(x, 16)
+    w1p, w3p = (tgmm._pad_last(torch.nn.functional.pad(w, (0, 0, 0, 3)), 16)
+                for w in (w1, w3))
+    assert xp.shape == (2, 5, 16) and w1p.shape == w3p.shape == (2, 16, 16)
+    assert all(_build.tma_ready(t) for t in (xp, w1p, w3p))
+    padded = tgmm._moe_gmm_torch(xp, w1p, w3p)
+    assert torch.equal(padded[..., :11], tgmm._moe_gmm_torch(x, w1, w3))
+    assert not padded[..., 11:].any()
+
+
 def test_header_change_renames_every_library(tmp_path, monkeypatch):
-    for src in ("moe_gmm.cu", "flash_attention.cu", "score_fuse.cu", "hopper.cuh"):
+    for src in ("moe_gmm.cu", "flash_attention.cu", "rwkv6_scan.cu",
+                "score_fuse.cu", "hopper.cuh"):
         shutil.copy(_build.CSRC / src, tmp_path / src)
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    names = ("moe_gmm", "flash_attention", "score_fuse")
+    names = ("moe_gmm", "flash_attention", "rwkv6_scan", "score_fuse")
     before = {n: _build._output(n) for n in names}
     assert {n: _build._output(n) for n in names} == before      # stable
     header = tmp_path / "hopper.cuh"
