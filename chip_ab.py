@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Compare this checkout's MoE up-projection (B7) and WKV6 scan (B5)
-kernels, and the prefill they serve, with another checkout's, on one
-NVIDIA GPU, in turns within one process tree.
+"""Compare this checkout's MoE up-projection (B7), WKV6 scan (B5), RG-LRU
+scan (B6) and fused scoring (B1) kernels, and the prefill and serving they
+feed, with another checkout's, on one NVIDIA GPU, in turns within one
+process tree.
 
 Usage, from the repository root::
 
@@ -15,13 +16,25 @@ and prints one JSON line per worker, then the medians per side:
 - ``b7_ms``: ``moe_gmm`` (kernel B7) at DeepSeek-V2-Lite's prefill (E = 64,
   C = 240, D = 2048, F = 1408) and decode (C = 8) shapes, on seeded bf16
   operands; ``b5_ms``: ``rwkv6_scan`` (kernel B5) at rwkv6-7b's prefill
-  shape (16, 128, 64, 64).  Each the median over 5 rounds of CUDA events
-  around 20 calls, after 3 warm-up calls.
-- ``prefill_ms`` / ``decode_ms``: DeepSeek-V2-Lite and rwkv6-7b at full
-  width and depth (bf16 weights drawn on the card from a seed,
-  ``use_pallas=True``), 16 prompts of 128 tokens: the median of 5
-  prefills after one warm-up, and of the 20 decode steps that follow the
-  last 5 (host clock around work that ends in a synchronise).
+  shape (16, 128, 64, 64); ``b6_ms``: ``rglru_scan`` (kernel B6) at
+  recurrentgemma-2b's prefill shape (16, 128, 2560); ``b1_ms``:
+  ``score_fuse_batch`` (kernel B1) at the serving shape, 16 mixed requests
+  (U > 1 unique filter masks) over the K = 32768 archive of
+  ``chip_smoke.candidates``.  Each the median over 5 rounds of CUDA events
+  around 20 calls, after 3 warm-up calls.  B1's call is host-bound, so
+  ``b1_device_ms`` and ``b6_device_ms`` add the kernels' own device time
+  per call from a ``torch.profiler`` trace of 20 calls.
+- ``prefill_ms`` / ``decode_ms``: DeepSeek-V2-Lite, rwkv6-7b and
+  recurrentgemma-2b at full width and depth (bf16 weights drawn on the
+  card from a seed, ``use_pallas=True``), 16 prompts of 128 tokens: the
+  median of 5 prefills after one warm-up, and of the 20 decode steps that
+  follow the last 5 (host clock around work that ends in a synchronise);
+  ``prefill_device_ms``: the device time of every kernel of one prefill
+  (mean of two, from a ``torch.profiler`` trace), which host speed does
+  not move.
+- ``serve_ms``: ``BatchServer.serve`` of 16 mixed requests on that archive,
+  the median of 30 calls after 3 warm-ups (host clock; ``serve`` ends in
+  device-to-host copies).
 
 Both checkouts must provide ``repro_torch`` with these entry points.  Exits
 non-zero when CUDA is unavailable or a worker fails.
@@ -37,9 +50,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-ARCHS = ("deepseek-v2-lite-16b", "rwkv6-7b")
+ARCHS = ("deepseek-v2-lite-16b", "rwkv6-7b", "recurrentgemma-2b")
 ROUNDS, CALLS, WARM = 5, 20, 3
 PREFILLS, STEPS = 6, 4          # prefills (the first a warm-up), steps each
+SERVE_CALLS = 30
 
 
 def event_ms(torch, fn) -> float:
@@ -59,20 +73,78 @@ def event_ms(torch, fn) -> float:
     return float(np.median(rounds))
 
 
+def device_ms(torch, fn, names, calls=CALLS, warm=WARM) -> float:
+    """Per-call device time of the kernels whose names contain one of
+    ``names`` over ``calls`` calls, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total", 0.0)
+                for e in prof.key_averages()
+                if any(n in e.key for n in names))
+    return total / 1e3 / calls
+
+
+def scoring(torch, report, dev) -> None:
+    """B1 at the serving shape, and the serve call that launches it."""
+    import chip_smoke
+    from repro_torch.core.engine import _dedup_masks
+    from repro_torch.core.types import RequestBatch
+    from repro_torch.kernels import score_fuse
+    from repro_torch.serve import BatchServer, DeviceArchive
+
+    cands = chip_smoke.candidates(chip_smoke.K_FULL, chip_smoke.T_FULL)
+    archive = DeviceArchive.stage(cands, device=dev)
+    stats = torch.stack(tuple(archive.score_stats()))
+    reqs = chip_smoke.mixed_requests(np.random.default_rng(1),
+                                     chip_smoke.B_FULL)
+    batch = RequestBatch.from_requests(cands, reqs)
+    uniq, inv = _dedup_masks(batch.masks)
+    on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    args = (stats, archive.prices, archive.vcpus, archive.memory_gb,
+            on(batch.masks), on(batch.use_cpus), on(batch.amounts),
+            on(batch.lams), on(batch.weights), on(uniq), inv)
+    call = lambda: score_fuse.score_fuse_batch(*args)  # noqa: E731
+    report["b1_ms"] = event_ms(torch, call)
+    report["b1_device_ms"] = device_ms(
+        torch, call, ("score_reduce_kernel", "score_emit_kernel"))
+    report["b1_unique_masks"] = int(uniq.shape[0])
+    del archive, stats, args
+
+    server = BatchServer(device=dev, bucket_sizes=chip_smoke.BUCKETS)
+    staged = server.cache.get(cands)
+    staged.score_stats()
+    times = []
+    for i in range(WARM + SERVE_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        server.serve(staged, reqs)
+        if i >= WARM:
+            times.append((time.perf_counter() - t0) * 1e3)
+    report["serve_ms"] = float(np.median(times))
+    del server, staged
+    torch.cuda.empty_cache()
+
+
 def worker(root: Path) -> dict:
     """Times of ``root``'s kernels and prefill (see the module docstring)."""
     sys.path.insert(0, str(root / "src"))
     import torch
     from dataclasses import replace
     from repro_torch.configs.registry import get_config
-    from repro_torch.kernels import moe_gmm, rwkv6_scan
+    from repro_torch.kernels import moe_gmm, rglru_scan, rwkv6_scan
     from repro_torch.models import get_model
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
     report = {"root": str(root), "b7_ms": {}, "prefill_ms": {},
-              "decode_ms": {}}
+              "decode_ms": {}, "prefill_device_ms": {}}
     w1, w3 = ((rnd(64, 2048, 1408) * 2048 ** -0.5).to(torch.bfloat16)
               for _ in range(2))
     for phase, C in (("prefill", 240), ("decode", 8)):
@@ -87,6 +159,13 @@ def worker(root: Path) -> dict:
     report["b5_ms"] = event_ms(
         torch, lambda: rwkv6_scan.rwkv6_scan(r, k, v, log_w, u, s0))
     del r, k, v, log_w, u, s0
+    la = -torch.rand((16, 128, 2560), generator=g, device=dev) * 2.0
+    x_in, h0 = rnd(16, 128, 2560), rnd(16, 2560)
+    b6 = lambda: rglru_scan.rglru_scan(la, x_in, h0)  # noqa: E731
+    report["b6_ms"] = event_ms(torch, b6)
+    report["b6_device_ms"] = device_ms(torch, b6, ("rglru_kernel",))
+    del la, x_in, h0
+    scoring(torch, report, dev)
 
     for arch in ARCHS:
         cfg = replace(get_config(arch), use_pallas=True)
@@ -114,6 +193,14 @@ def worker(root: Path) -> dict:
                     decode.append((time.perf_counter() - t0) * 1e3)
         report["prefill_ms"][arch] = float(np.median(prefill[1:]))
         report["decode_ms"][arch] = float(np.median(decode[STEPS:]))
+
+        def two_prefills():
+            for _ in range(2):
+                model.prefill(params, {"tokens": prompt},
+                              model.init_cache(16, 128 + STEPS))
+        with torch.no_grad():
+            report["prefill_device_ms"][arch] = device_ms(
+                torch, two_prefills, ("",), calls=1, warm=0) / 2
         del model, params, cache, logits
         torch.cuda.empty_cache()
     return report
@@ -155,8 +242,11 @@ def main() -> None:
                 vals.append(val)
         return float(np.median(vals))
 
-    keys = [("b7_ms", "prefill"), ("b7_ms", "decode"), ("b5_ms",)]
-    keys += [(kind, arch) for kind in ("prefill_ms", "decode_ms")
+    keys = [("b7_ms", "prefill"), ("b7_ms", "decode"), ("b5_ms",),
+            ("b6_ms",), ("b6_device_ms",), ("b1_ms",), ("b1_device_ms",),
+            ("serve_ms",)]
+    keys += [(kind, arch)
+             for kind in ("prefill_ms", "prefill_device_ms", "decode_ms")
              for arch in ARCHS]
     print(json.dumps({"/".join(k): {"other": median("other", *k),
                                     "this": median("this", *k)}

@@ -16,7 +16,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    (U = 1) and with region/family filters (U > 1), and kernel B2
    ``pool_scan`` on the resulting sorted rows.  Each result must equal the
    kernel's plain PyTorch version on the same inputs bit for bit.  Times
-   each kernel and its plain version.
+   each kernel and its plain version, B1's ``score_reduce_kernel`` and
+   ``score_emit_kernel`` also one by one, and prints B1's launch plan:
+   blocks, blocks an SM and waves of each kernel.
 3. Main path: a seeded K = 32768, T = 1008 archive (132 MB of float32 T3 on
    the card) served through ``BatchServer.serve`` for 3 x 16 mixed
    requests, with the kernels' launch counters reset just before and read
@@ -55,7 +57,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    random ``u`` (the model's is drawn as zeros, which leaves the bonus term
    untested) and on a 77-step prefix from the state the first check ends
    in, each output within ``WKV_TOL`` of its own max|plain|; B6 as captured
-   and on the 77-step prefix, bit for bit.  The same weights then serve
+   and on the 77-step prefix, bit for bit, and its persistent grid (tiles,
+   blocks, blocks an SM, waves) printed.  The same weights then serve
    again through the reference's plain route (``use_pallas=False``) and
    greedy tokens are compared; for DeepSeek-V2-Lite a sequence may part from
    it only at a step whose top-1 / top-2 logit margin is under twice the
@@ -97,8 +100,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    ``torch.bmm(x, cat([w1, w3], -1))``'s (the two products alone, a
    yardstick, not ``library_ms``: no one call computes B7), prefill and
    decode, each pair from this run; the first versions' times of B5 and B7
-   (from PERF.md) beside this run's; the ``kernels`` JSON line, the card
-   line, and last the ``ok`` line.
+   and the previous times of B1 and B6 (from PERF.md) beside this run's;
+   the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Kernel device times come from ``torch.profiler``, summed over the kernels
 of the wrapper's own symbol (B4 ``flash_kernel``, B7 ``gmm_up_kernel``, B8
@@ -202,6 +205,9 @@ TF32_OPS_PER_S = 495e12
 # printed beside this run's
 FIRST_VERSION_MS = {"rwkv6_scan": 0.544,
                     "moe_gmm": {"prefill": 0.810, "decode": 0.260}}
+# B1's and B6's device times before their K-split and shuffle rebuilds, as
+# recorded in PERF.md (one NVIDIA H100 80GB HBM3, 700 W)
+PREVIOUS_MS = {"score_fuse": 0.0247, "rglru_scan": 0.0471}
 
 
 def fail(msg: str) -> None:
@@ -267,11 +273,12 @@ def same_bits(a, b) -> bool:
         ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def time_ms(fn, names: tuple[str, ...] | None):
+def time_ms(fn, names: tuple[str, ...] | None, per_name: dict | None = None):
     """Median per-call CUDA-event time, and the per-call device time of the
     kernels whose names contain one of ``names`` (all kernels if ``None``)
     from a ``torch.profiler`` trace; the latter is ``None`` if the profiler
-    records no device time."""
+    records no device time.  ``per_name``, if given, receives each of
+    ``names``' own per-call device time."""
     import torch
     for _ in range(3):
         fn()
@@ -303,12 +310,55 @@ def time_ms(fn, names: tuple[str, ...] | None):
             seen.append(evt.key)
         if names is None or any(n in evt.key for n in names):
             total_us += dev_us
+        if per_name is not None:
+            for n in names or ():
+                if n in evt.key:
+                    per_name[n] = per_name.get(n, 0.0) + dev_us / 1e3 / TIME_REPS
     if seen and total_us == 0:
         # a renamed kernel must not turn a profiler time into an event time
         fail(f"the profiler recorded device time, but under no kernel named "
              f"{names}: {sorted(seen)[:8]}")
     prof_ms = total_us / 1e3 / TIME_REPS if total_us > 0 else None
     return call_ms, prof_ms
+
+
+def score_plan_line(torch, sf, K, rows, B, args) -> dict:
+    """B1's grids at this call (``score_plan``), the blocks of each kernel
+    an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and the
+    waves they make on this card; printed and returned."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stats, prices, vcpus, memory_gb, masks = args[:5]
+    uniq = args[9]
+    vec = sf.vec_ok(K, (stats, prices, vcpus, memory_gb), (masks, uniq))
+    plan = sf.score_plan(K, rows, sms, vec)
+    per_sm = dict(zip(("reduce", "emit"), sf.occupancy(DEVICE)))
+    blocks = dict(reduce=plan.slices * plan.row_groups,
+                  emit=plan.emit_blocks * B)
+    out = dict(sms=sms, slices=plan.slices, slice=plan.slice,
+               row_groups=plan.row_groups, emit_blocks_x=plan.emit_blocks,
+               vec=plan.vec, blocks=blocks, blocks_per_sm=per_sm,
+               waves={k: blocks[k] / (per_sm[k] * sms) for k in blocks})
+    print(f"B1 plan at K={K}, {rows} rows: reduce {blocks['reduce']} blocks "
+          f"({plan.slices} slices of {plan.slice} lanes x {plan.row_groups}), "
+          f"{per_sm['reduce']} an SM, {out['waves']['reduce']:.2f} waves; "
+          f"emit {blocks['emit']} blocks, {per_sm['emit']} an SM, "
+          f"{out['waves']['emit']:.2f} waves; 16-byte path {plan.vec}")
+    return out
+
+
+def rglru_plan_line(torch, B, S, R) -> dict:
+    """B6's persistent grid at (B, S, R) (``launch_plan``) from the kernel's
+    occupancy on this card; printed and returned."""
+    from repro_torch.kernels import rglru_scan as rg
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm, smem = rg.occupancy(DEVICE)
+    plan = rg.launch_plan(B, R, sms, per_sm)
+    print(f"B6 plan at ({B}, {S}, {R}): {plan.tiles} tiles of "
+          f"{rg.TILE_CHANNELS} channels on {plan.grid} persistent blocks, "
+          f"{per_sm} an SM ({smem} B of shared memory each), "
+          f"{plan.waves:.2f} waves of tiles")
+    return dict(sms=sms, tiles=plan.tiles, grid=plan.grid,
+                blocks_per_sm=per_sm, smem_bytes=smem, waves=plan.waves)
 
 
 def kernel_phase(torch, cands, archive):
@@ -384,7 +434,8 @@ def kernel_phase(torch, cands, archive):
                      lambda: ps.pool_scan(s, c, amounts, csc, backend="torch"),
                      ps_bytes, ps_ops, ("pool_term_kernel",
                                         "pool_emit_kernel"))):
-                call_ms, dev_ms = time_ms(kfn, knames)
+                split = {}
+                call_ms, dev_ms = time_ms(kfn, knames, split)
                 plain_call_ms, plain_dev_ms = time_ms(pfn, None)
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = nops / FP32_OPS_PER_S * 1e3
@@ -397,8 +448,13 @@ def kernel_phase(torch, cands, archive):
                     plain_call_ms=plain_call_ms,
                     bound_ms=max(t_bytes, t_ops),
                     bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=nbytes, ops=nops)
+                    bytes=nbytes, ops=nops, kernel_ms=split)
+                print(f"{name} device ms: " + " + ".join(
+                    f"{k} {v:.5f}" for k, v in split.items())
+                    + f" = {dev_ms if dev_ms is not None else float('nan'):.5f}")
             timings["pool_scan"]["scanned_lanes"] = int(scanned.sum())
+            timings["score_fuse"]["plan"] = score_plan_line(
+                torch, sf, K, U + B, B, args)
     for name, e in err.items():
         timings[name]["max_abs_err"] = e
     return timings
@@ -1161,7 +1217,8 @@ def hold_rglru(torch, arch, captured):
     timing = scan_times(torch, rglru_scan, args, ("rglru_kernel",),
                         rglru_cost(*log_a.shape))
     timing.update(max_abs_err=max(c["max_abs_err"] for c in checks.values()),
-                  tolerance="bit-identical")
+                  tolerance="bit-identical",
+                  plan=rglru_plan_line(torch, *log_a.shape))
     return checks, {"rglru_scan": timing}
 
 
@@ -1775,6 +1832,12 @@ def main() -> None:
               old["rwkv6_scan"], timings["rwkv6_scan"]["ms"],
               old["moe_gmm"]["prefill"], b7["prefill"]["ms"],
               old["moe_gmm"]["decode"], b7["decode"]["ms"]))
+    b1 = timings["score_fuse"]
+    print("previous version (PERF.md) -> this run, device ms: B1 {:.5f} -> "
+          "{:.5f} ({}); B6 {:.5f} -> {:.5f}".format(
+              PREVIOUS_MS["score_fuse"], b1["ms"],
+              ", ".join(f"{k} {v:.5f}" for k, v in b1["kernel_ms"].items()),
+              PREVIOUS_MS["rglru_scan"], timings["rglru_scan"]["ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,7 @@ PyTorch version for a tensor that lives on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -116,6 +117,24 @@ def build_log(name: str) -> str:
     """nvcc's output for the last build of ``name`` (ptxas usage lines)."""
     path = BUILD_DIR / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def int_outputs(lib: ctypes.CDLL, name: str, n: int, device) -> tuple:
+    """Call the C entry point ``name(int*, ..., int*)`` of ``n`` outputs on
+    ``device`` and return them (an occupancy query, say)."""
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * n
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(n)]
+    with torch.cuda.device(device):
+        check(fn(*(ctypes.byref(v) for v in out)), name)
+    return tuple(v.value for v in out)
 
 
 def check(err: int, what: str) -> None:

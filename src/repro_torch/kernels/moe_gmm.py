@@ -33,7 +33,6 @@ autograd the wrappers raise.
 """
 from __future__ import annotations
 
-import functools
 import math
 from dataclasses import dataclass
 
@@ -181,11 +180,6 @@ def _launch(fn_name: str, out, ptrs, dims) -> None:
             fn_name)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _check(x, ws, names, x_shape, w_shape, device, cuda: bool):
     dtypes = (torch.bfloat16,) if cuda else (x.dtype,)
     if not cuda and not x.dtype.is_floating_point:
@@ -214,7 +208,7 @@ def _run_tiles(fn_name: str, out, a, ws, *, up: bool) -> bool:
         ws = [_pad_last(F_.pad(w, (0, 0, 0, Kp - K)), Np) for w in ws]
     res = out if Np == N else torch.empty((E, C, Np), dtype=out.dtype,
                                           device=out.device)
-    plan = gmm_plan(E, C, Kp, Np, _sm_count(out.device), up=up)
+    plan = gmm_plan(E, C, Kp, Np, _build.sm_count(out.device), up=up)
     _launch(fn_name, res, (a, *ws), (E, C, Kp, Np, plan.row_tiles, plan.blocks))
     if res is not out:
         out.copy_(res[..., :N])

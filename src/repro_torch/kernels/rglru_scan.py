@@ -14,10 +14,16 @@ Two versions, one contract:
 - the plain PyTorch version (:func:`_rglru_scan_torch`), which follows the
   Pallas body (``_rglru_kernel``) op for op on whole (B, chunk, R) tiles.
   CPU tensors take it and ``backend="torch"`` forces it;
-- the CUDA kernel B6, ``csrc/rglru_scan.cu``, which CUDA tensors take: a
-  block of 32 channels x 8 row groups per batch row, the chunk in shared
-  memory, the same doubling steps.  Built with ``--fmad=false`` (no fused
-  multiply-add), it equals the plain version on the card bit for bit.
+- the CUDA kernel B6, ``csrc/rglru_scan.cu``, which CUDA tensors take:
+  persistent blocks walk tiles of 16 channels of one batch row
+  (:func:`launch_plan`, :func:`block_work`), the next chunk arriving by
+  ``cp.async`` while one is scanned; a warp runs the same doubling
+  steps on one channel's chunk in registers, lane l holding rows l, l + 32,
+  l + 64, l + 96, offsets 1-16 by warp shuffles and 32 and 64 between a
+  lane's own registers (mirrored on the CPU in
+  ``tests/test_torch_schedules.py``).  Built with ``--fmad=false`` (no
+  fused multiply-add), it equals the plain version on the card bit for
+  bit.
 
 Against the JAX reference on the CPU the two differ at the last float32
 bit: XLA's float32 ``exp`` is its own approximation, and XLA contracts the
@@ -28,13 +34,21 @@ the plain version equals the Pallas body bit for bit
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from . import _build
 
 CHUNK = 128                     # the Pallas kernel's chunk (``ops.rglru_scan``)
+TILE_CHANNELS = 16              # channels a tile
+THREADS = 256                   # a block: 8 warps of 2 channels a tile
+# two buffers of (CHUNK x TILE_CHANNELS + 1) float32 tiles of log_a and x
+# and of a tile's h0, and the carries
+SMEM_BYTES = 4 * (4 * CHUNK * (TILE_CHANNELS + 1) + 3 * TILE_CHANNELS)
 
-_SIGNATURES = {"rglru_scan_launch": (5, 3)}
+_SIGNATURES = {"rglru_scan_launch": (5, 4)}
 
 
 # ---------------------------------------------------------------------------
@@ -84,17 +98,67 @@ def _rglru_scan_torch(log_a, x_in, h0, chunk: int = CHUNK, *,
 # CUDA kernel B6
 # ---------------------------------------------------------------------------
 
+@dataclass(frozen=True)
+class LaunchPlan:
+    """B6's persistent grid: ``tiles`` (batch row, 16-channel) tiles walked
+    by ``grid`` blocks of ``THREADS`` threads, block x taking tiles x,
+    x + grid, ...; ``waves`` is tiles over the blocks the card holds at
+    once (``sms`` x ``blocks_per_sm``), ``smem_bytes`` a block's dynamic
+    shared memory."""
+
+    tiles: int
+    grid: int
+    waves: float
+    smem_bytes: int
+
+
+def launch_plan(B: int, R: int, sms: int, blocks_per_sm: int) -> LaunchPlan:
+    """The grid that fills ``sms`` SMs of ``blocks_per_sm`` resident blocks
+    each, and no more blocks than there are tiles (a block walks every
+    chunk of its tiles, whatever the sequence length)."""
+    tiles = B * -(-R // TILE_CHANNELS)
+    slots = max(1, sms * blocks_per_sm)
+    return LaunchPlan(tiles=tiles, grid=max(1, min(tiles, slots)),
+                      waves=tiles / slots, smem_bytes=SMEM_BYTES)
+
+
+def block_work(plan: LaunchPlan, R: int, x: int):
+    """The (batch row, channel range) pairs block ``x`` scans, in order."""
+    ctiles = -(-R // TILE_CHANNELS)
+    out = []
+    for tile in range(x, plan.tiles, plan.grid):
+        b, c = divmod(tile, ctiles)
+        r0 = c * TILE_CHANNELS
+        out.append((b, range(r0, min(R, r0 + TILE_CHANNELS))))
+    return out
+
+
+def occupancy(device) -> tuple[int, int]:
+    """(blocks of ``rglru_kernel`` an SM holds, its dynamic shared memory
+    in bytes) on ``device``, as the CUDA runtime reports them."""
+    return _occupancy(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device) -> tuple[int, int]:
+    return _build.int_outputs(_build.library("rglru_scan", {}),
+                              "rglru_scan_occupancy", 2, device)
+
+
 def _rglru_scan_cuda(log_a, x_in, h0):
     B, S, R = log_a.shape
     dev = log_a.device
     hs = torch.empty((B, S, R), dtype=torch.float32, device=dev)
+    if S == 0:                  # nothing to scan: the carry is h0
+        return hs, h0.clone()
     h_last = torch.empty((B, R), dtype=torch.float32, device=dev)
     lib = _build.library("rglru_scan", _SIGNATURES)
+    plan = launch_plan(B, R, _build.sm_count(dev), occupancy(dev)[0])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.rglru_scan_launch(
             *(t.data_ptr() for t in (log_a, x_in, h0, hs, h_last)),
-            B, S, R, stream), "rglru_scan_launch")
+            B, S, R, plan.grid, stream), "rglru_scan_launch")
     rglru_scan.launches += 1
     return hs, h_last
 

@@ -19,9 +19,14 @@ Two versions, one contract:
 - the plain PyTorch version (:func:`_score_fuse_torch`), which CPU tensors
   take and ``backend="torch"`` forces;
 - the CUDA kernel ``csrc/score_fuse.cu`` (:func:`_score_fuse_cuda`), which
-  CUDA tensors take.  It is built with ``--fmad=false`` and keeps the op
-  order of ``_emit_rows`` below, so on the same inputs its rows, extrema and
-  C_min equal the plain version's bit for bit.
+  CUDA tensors take: a K-split reduction (``score_reduce_kernel``, at least
+  one block an SM at the serving shape, partial extrema and C_min per
+  K-slice into scratch) and an emit (``score_emit_kernel``) that merges its
+  row's partials and writes the rows 16 bytes a thread on aligned rows;
+  grids from :func:`score_plan` (mirrored on the CPU in
+  ``tests/test_torch_schedules.py``).  It is built with ``--fmad=false``
+  and keeps the op order of ``_emit_rows`` below, so on the same inputs
+  its rows, extrema and C_min equal the plain version's bit for bit.
 
 Against the JAX reference, extrema and C_min are bit-equal on the same
 statistics (min and max are exact); the rows agree to float32-ulp level,
@@ -33,6 +38,8 @@ An all-masked row (which the engine rejects before dispatch) yields
 """
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +49,15 @@ from ..core.scoring import _minmax_from, f32
 from . import _build
 
 INF = float("inf")
+
+REDUCE_WARPS = 8         # a reduce block: 8 warps of 4 rows each
+ROWS_PER_WARP = 4
+REDUCE_ROWS = REDUCE_WARPS * ROWS_PER_WARP   # rows a reduce block (grid y)
+EMIT_THREADS = 256
+EMIT_GROUPS = 2          # 4-lane groups an emit thread
+LANES = 4                # lanes a group: one 16-byte access
+EMIT_LANES = EMIT_THREADS * EMIT_GROUPS * LANES
+SLICES_PER_SM = 2        # reduce blocks aimed at, per SM
 
 
 class FusedScores(NamedTuple):
@@ -93,9 +109,69 @@ def _score_fuse_torch(stats, prices, vcpus, memory_gb, masks, use_cpus,
     return FusedScores(comb, avail, cost, extrema, cost_floor)
 
 
+@dataclass(frozen=True)
+class ScorePlan:
+    """B1's grids.  The reduce runs on (``slices``, ``row_groups``) blocks:
+    block (g, y) takes lanes [g * ``slice``, (g + 1) * ``slice``) of K (a
+    multiple of ``LANES``) and rows [32 y, 32 y + 32) of the U extrema rows
+    followed by the B C_min rows, and writes one partial per row and slice.
+    The emit runs on (``emit_blocks``, B) blocks of ``EMIT_LANES`` lanes.
+    ``vec``: 16-byte accesses (:func:`vec_ok`)."""
+
+    slices: int
+    slice: int
+    row_groups: int
+    emit_blocks: int
+    vec: bool
+
+
+def score_plan(K: int, rows: int, sms: int, vec: bool) -> ScorePlan:
+    """Split K so that the reduce has about ``SLICES_PER_SM`` blocks an SM
+    (never more slices than 4-lane groups, so at most that many partials a
+    row for the emit to merge)."""
+    row_groups = max(1, -(-rows // REDUCE_ROWS))
+    groups = -(-K // LANES)
+    want = max(1, -(-SLICES_PER_SM * sms // row_groups))
+    per = -(-groups // min(groups, want))
+    width = LANES * per
+    return ScorePlan(slices=-(-K // width), slice=width, row_groups=row_groups,
+                     emit_blocks=-(-K // EMIT_LANES), vec=vec)
+
+
+def reduce_block_work(plan: ScorePlan, K: int, rows: int, x: int, y: int):
+    """(lanes, rows) that reduce block (x, y) scans."""
+    return (range(x * plan.slice, min(K, (x + 1) * plan.slice)),
+            range(y * REDUCE_ROWS, min(rows, (y + 1) * REDUCE_ROWS)))
+
+
+def emit_block_work(plan: ScorePlan, K: int, x: int, y: int):
+    """(request row, lanes) that emit block (x, y) writes."""
+    return y, range(x * EMIT_LANES, min(K, (x + 1) * EMIT_LANES))
+
+
+def vec_ok(K: int, floats, bytes_) -> bool:
+    """Whether every row can be read and written 16 bytes a thread: K a
+    multiple of 4 (so rows 1 and 2 of ``stats`` and every (B, K) row start
+    on a 16-byte boundary when row 0 does), every float array on a 16-byte
+    boundary and every byte-mask array on a 4-byte one."""
+    return (K % LANES == 0 and all(t.data_ptr() % 16 == 0 for t in floats)
+            and all(t.data_ptr() % 4 == 0 for t in bytes_))
+
+
 def _library():
-    return _build.library("score_fuse", {"score_fuse_reduce": (10, 3),
-                                         "score_fuse_emit": (14, 2)})
+    return _build.library("score_fuse", {"score_fuse_reduce": (10, 7),
+                                         "score_fuse_emit": (16, 6)})
+
+
+def occupancy(device) -> tuple[int, int]:
+    """Blocks of ``score_reduce_kernel`` and ``score_emit_kernel`` an SM
+    holds at once on ``device``, as the CUDA runtime reports them."""
+    return _occupancy(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(device) -> tuple[int, int]:
+    return _build.int_outputs(_library(), "score_fuse_occupancy", 2, device)
 
 
 def _score_fuse_cuda(stats, prices, vcpus, memory_gb, masks, use_cpus,
@@ -110,21 +186,28 @@ def _score_fuse_cuda(stats, prices, vcpus, memory_gb, masks, use_cpus,
     cmin = new(B) if cost_floor is None else cost_floor
     n_ext = U if extrema is None else 0
     n_cmin = B if cost_floor is None else 0
+    vec = vec_ok(K, (stats, prices, vcpus, memory_gb, comb, avail, cost),
+                 (masks, uniq_masks))
+    plan = score_plan(K, n_ext + n_cmin, _build.sm_count(dev), vec)
+    part_ext = new(n_ext, 6, plan.slices) if n_ext else None
+    part_cmin = new(n_cmin, plan.slices) if n_cmin else None
     lib = _library()
-    ptr = lambda t: t.data_ptr()  # noqa: E731
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if n_ext + n_cmin:
             _build.check(lib.score_fuse_reduce(
                 ptr(stats), ptr(prices), ptr(vcpus), ptr(memory_gb),
                 ptr(uniq_masks), ptr(masks), ptr(use_cpus), ptr(amount),
-                ptr(ext), ptr(cmin), K, n_ext, n_cmin, stream),
+                ptr(part_ext), ptr(part_cmin), K, n_ext, n_cmin,
+                plan.slices, plan.slice, plan.row_groups, int(vec), stream),
                 "score_fuse_reduce")
         _build.check(lib.score_fuse_emit(
             ptr(stats), ptr(prices), ptr(vcpus), ptr(memory_gb),
             ptr(use_cpus), ptr(amount), ptr(lam), ptr(weight), ptr(inv),
-            ptr(ext), ptr(cmin), ptr(comb), ptr(avail), ptr(cost), K, B,
-            stream), "score_fuse_emit")
+            ptr(ext), ptr(cmin), ptr(part_ext), ptr(part_cmin), ptr(comb),
+            ptr(avail), ptr(cost), K, B, U, plan.slices, plan.emit_blocks,
+            int(vec), stream), "score_fuse_emit")
     score_fuse_batch.launches += 1
     return FusedScores(comb, avail, cost, ext, cmin)
 

@@ -117,6 +117,55 @@ def test_kernels_match_plain_versions(cuda, K):
         assert torch.equal(a, b)
 
 
+def _score_inputs(K, B, device, seed=0):
+    """Seeded B1 operands with NaN and +-0 among the statistics, three base
+    filter masks (so U > 1 once B > 1) and a request whose mask keeps one
+    lane."""
+    rng = np.random.default_rng(seed * 1000 + K + B)
+    stats = rng.standard_normal((3, K)).astype(np.float32)
+    flat = stats.reshape(-1)
+    flat[rng.integers(0, flat.size, max(1, flat.size // 53))] = -0.0
+    stats[:, rng.integers(0, K, max(1, K // 7))] = 0.0
+    nan_lanes = rng.integers(0, K, 2)
+    stats[0, nan_lanes[0]] = stats[2, nan_lanes[1]] = np.nan
+    # the first mask takes every lane (its extrema are NaN), the others
+    # leave the NaN lanes out
+    base = rng.random((3, K)) < np.array([[1.0], [0.6], [0.3]])
+    base[1:, nan_lanes] = False
+    masks = base[rng.integers(0, 3, B)]
+    one = np.zeros(K, bool)
+    one[rng.integers(0, K)] = True
+    masks[B // 2] = one
+    on = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    uniq, inv = _dedup_masks(masks)
+    return (on(stats), on(rng.uniform(0.01, 5.0, K).astype(np.float32)),
+            on(rng.choice([2, 4, 8, 96], K).astype(np.float32)),
+            on(rng.choice([4, 16, 384], K).astype(np.float32)), on(masks),
+            on(rng.random(B) < 0.5),
+            on(rng.choice([64, 100, 1000], B).astype(np.float32)),
+            on(rng.uniform(0.05, 0.3, B).astype(np.float32)),
+            on(np.where(rng.random(B) < 0.2, 1.0,
+                        rng.uniform(0, 1, B)).astype(np.float32)),
+            on(uniq), inv)
+
+
+@pytest.mark.parametrize("B", [1, 16, 64])
+@pytest.mark.parametrize("K", [1, 3, 255, 1001, 32768, 32771])
+def test_score_fuse_kernel_bit_identical_on_edge_values(cuda, K, B):
+    """B1's K-split partials, merge and 16-byte emit against the plain
+    version, every lane of every row, with and without each short-circuit."""
+    args = _score_inputs(K, B, cuda)
+    want = tsf.score_fuse_batch(*args, backend="torch")
+    before = tsf.score_fuse_batch.launches
+    for kw in ({}, {"extrema": want.extrema}, {"cost_floor": want.c_min},
+               {"extrema": want.extrema, "cost_floor": want.c_min}):
+        got = tsf.score_fuse_batch(*args, **kw)
+        torch.cuda.synchronize()
+        for name in tsf.FusedScores._fields:
+            assert _same(getattr(got, name), getattr(want, name)), (name, kw)
+    assert tsf.score_fuse_batch.launches == before + 4
+
+
 def test_pool_scan_kernel_on_adversarial_rows(cuda):
     rng = np.random.default_rng(5)
     B, K = 8, 3000
@@ -383,6 +432,33 @@ def test_rglru_scan_kernel_matches_plain_version(cuda, B, S, R):
     assert trg.rglru_scan.launches == before + 1
     p_hs, p_last = trg.rglru_scan(log_a, x_in, h0, backend="torch")
     assert _same(hs, p_hs) and _same(h_last, p_last)
+
+
+@pytest.mark.parametrize("R", [1, 33, 2560, 2561])
+@pytest.mark.parametrize("S", [1, 77, 127, 128, 129, 300])
+def test_rglru_scan_kernel_bit_identical_on_edge_values(cuda, S, R):
+    """B6's shuffle doubling against the plain version, with whole rows of
+    log_a = 0 and -0 in x and h0; at R >= 2560, 16 batch rows, so that
+    persistent blocks walk more than one tile."""
+    B = 16 if R >= 2560 else 3
+    rng = np.random.default_rng(S * 10007 + R)
+    log_a = -rng.uniform(0.0, 2.0, (B, S, R)).astype(np.float32)
+    log_a[:, rng.integers(0, S, max(1, S // 9))] = 0.0
+    x_in = rng.standard_normal((B, S, R)).astype(np.float32)
+    x_in.reshape(-1)[rng.integers(0, x_in.size, max(1, x_in.size // 31))] = -0.0
+    x_in[:, 0, : (R + 1) // 2] = -0.0
+    h0 = rng.standard_normal((B, R)).astype(np.float32)
+    h0[:, ::3] = -0.0
+    args = [torch.from_numpy(a).to(cuda) for a in (log_a, x_in, h0)]
+    before = trg.rglru_scan.launches
+    hs, h_last = trg.rglru_scan(*args)
+    torch.cuda.synchronize()
+    assert trg.rglru_scan.launches == before + 1
+    p_hs, p_last = trg.rglru_scan(*args, backend="torch")
+    assert _same(hs, p_hs) and _same(h_last, p_last)
+    # -0 stays -0 only where the plain version keeps it (row 0 adds the
+    # carry, every other row adds +0)
+    assert torch.equal(torch.signbit(hs), torch.signbit(p_hs))
 
 
 @pytest.mark.parametrize("arch,counter", [

@@ -1,4 +1,6 @@
-"""Launch geometry of the Hopper kernels B4, B7 and B8, checked on the CPU.
+"""Launch geometry of the Hopper kernels B4, B7 and B8, and of the
+persistent RG-LRU scan B6 and the K-split scoring kernel B1, checked on the
+CPU.
 
 The kernels take their grid from the wrappers' plans
 (``flash_attention.launch_plan``, ``moe_gmm.gmm_plan``) and index their
@@ -10,7 +12,11 @@ B4's key tiles must hold every key a row attends to; the TMA boxes and
 alignment rules must match what the kernels load; B7's epilogue must pair
 w1's and w3's accumulators of one column.  Also: a change to a shared
 header ``csrc/*.cuh`` must change the name of every library built from the
-sources.
+sources.  B6 (``rglru_scan.launch_plan`` / ``block_work``) must scan every
+(batch, channel) exactly once; B1 (``score_fuse.score_plan``) must reduce
+every (row, lane) and emit every (request, lane) exactly once, run at least
+one reduce block an SM at the serving shape, and take its 16-byte path only
+on 16-byte-aligned rows.
 """
 import shutil
 
@@ -21,7 +27,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm as tgmm
+from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import rwkv6_scan as twkv
+from repro_torch.kernels import score_fuse as tsf
+
+SMEM_LIMIT = 232448          # a block's shared memory on an H100 (227 KB)
+H100_SMS = 132
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", [
@@ -217,3 +228,109 @@ def test_header_change_renames_every_library(tmp_path, monkeypatch):
     (tmp_path / "extra.cuh").write_text("// a new header\n")
     assert all(_build._output(n) != after[n] for n in names)
     assert "--fmad=false" in _build.NVCC_FLAGS
+
+
+# ---------------------------------------------------------------------------
+# B6: the persistent RG-LRU scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,S,R", [
+    (16, 128, 2560),     # recurrentgemma-2b's prefill
+    (16, 300, 2561),     # channel tail, three chunks
+    (3, 77, 33), (1, 1, 1), (2, 129, 16), (5, 128, 4000),
+])
+@pytest.mark.parametrize("blocks_per_sm", [1, 4, 6])
+def test_rglru_plan_covers_every_channel_once(B, S, R, blocks_per_sm):
+    plan = trg.launch_plan(B, R, H100_SMS, blocks_per_sm)
+    assert plan.tiles == B * -(-R // trg.TILE_CHANNELS)
+    assert 1 <= plan.grid <= min(plan.tiles, H100_SMS * blocks_per_sm)
+    assert plan.waves == plan.tiles / (H100_SMS * blocks_per_sm)
+    assert plan.smem_bytes == trg.SMEM_BYTES <= SMEM_LIMIT
+    seen = np.zeros((B, R), np.int64)
+    loads = []
+    for x in range(plan.grid):
+        work = trg.block_work(plan, R, x)
+        loads.append(len(work))
+        for b, chans in work:
+            assert len(chans) <= trg.TILE_CHANNELS
+            seen[b, chans.start:chans.stop] += 1
+    assert (seen == 1).all()
+    # a persistent grid: the blocks' tile counts differ by at most one
+    assert max(loads) - min(loads) <= 1 and min(loads) >= 1
+
+
+def test_rglru_smem_fits_with_room_for_blocks():
+    # two buffers of log_a and x (16 channels padded to 17) and of h0, the
+    # carries; small enough for several blocks an SM
+    assert trg.SMEM_BYTES == 4 * (4 * trg.CHUNK * 17 + 3 * 16) == 35008
+    assert 6 * trg.SMEM_BYTES <= SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# B1: the K-split reduction and the emit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K", [1, 3, 255, 1001, 32768, 32771, 1 << 20])
+@pytest.mark.parametrize("U,B,ext,cmin", [
+    (1, 1, True, True), (4, 16, True, True), (16, 16, True, True),
+    (16, 64, True, True), (3, 64, False, True), (7, 9, True, False),
+    (40, 65535, True, True),
+])
+def test_score_plan_covers_every_row_and_lane_once(K, U, B, ext, cmin):
+    rows = (U if ext else 0) + (B if cmin else 0)
+    plan = tsf.score_plan(K, rows, H100_SMS, K % 4 == 0)
+    assert plan.slice % tsf.LANES == 0
+    assert plan.slices == -(-K // plan.slice)
+    assert plan.slices <= tsf.SLICES_PER_SM * H100_SMS   # partials to merge
+    assert plan.row_groups == max(1, -(-rows // tsf.REDUCE_ROWS))
+    assert plan.row_groups <= 65535 and B <= 65535       # grid y limits
+    # every (row, lane) reduced once: lanes by slice, rows by group
+    lanes = np.zeros(K, np.int64)
+    for x in range(plan.slices):
+        ln, rw = tsf.reduce_block_work(plan, K, rows, x, 0)
+        lanes[ln.start:ln.stop] += 1
+    assert (lanes == 1).all()
+    row_seen = np.zeros(max(rows, 1), np.int64)
+    for y in range(plan.row_groups):
+        _, rw = tsf.reduce_block_work(plan, K, rows, 0, y)
+        row_seen[rw.start:rw.stop] += 1
+    assert (row_seen[:rows] == 1).all()
+    # every (request, lane) emitted once
+    if K * B <= 1 << 22:
+        emitted = np.zeros((B, K), np.int64)
+        for y in range(B):
+            for x in range(plan.emit_blocks):
+                b, ln = tsf.emit_block_work(plan, K, x, y)
+                emitted[b, ln.start:ln.stop] += 1
+        assert (emitted == 1).all()
+    assert plan.emit_blocks == -(-K // tsf.EMIT_LANES)
+
+
+@pytest.mark.parametrize("U", [1, 2, 16])
+def test_score_reduce_fills_the_card_at_the_serving_shape(U):
+    # B = 16 requests, K = 32768 candidates: at least one block an SM,
+    # every block scanning every row over its slice
+    plan = tsf.score_plan(32768, U + 16, H100_SMS, True)
+    assert plan.row_groups == 1
+    assert plan.slices * plan.row_groups >= H100_SMS
+    assert plan.slice == 128 and plan.slices == 256
+
+
+def test_score_vector_path_only_on_aligned_rows():
+    K = 64
+    floats = [torch.zeros(3, K), torch.zeros(K), torch.zeros(2, K)]
+    masks = [torch.zeros(5, K, dtype=torch.bool)]
+    assert tsf.vec_ok(K, floats, masks)
+    # K not a multiple of 4: rows 1 and 2 of stats (and odd request rows)
+    # start off a 16-byte boundary
+    assert not tsf.vec_ok(K - 1, [torch.zeros(3, K - 1)], masks)
+    assert not tsf.vec_ok(K + 2, [torch.zeros(3, K + 2)], masks)
+    # a float array whose first element is off a 16-byte boundary
+    off = torch.zeros(K + 1)[1:]
+    assert off.data_ptr() % 16 != 0
+    assert not tsf.vec_ok(K, floats + [off], masks)
+    # a mask array off a 4-byte boundary
+    moff = torch.zeros(5 * K + 1, dtype=torch.bool)[1:].view(5, K)
+    assert not tsf.vec_ok(K, floats, [moff])
+    # and the plan records the decision it was given
+    assert tsf.score_plan(K, 2, H100_SMS, False).vec is False
