@@ -18,7 +18,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    kernel's plain PyTorch version on the same inputs bit for bit.  Times
    each kernel and its plain version, B1's ``score_reduce_kernel`` and
    ``score_emit_kernel`` also one by one, and prints B1's launch plan:
-   blocks, blocks an SM and waves of each kernel.
+   blocks, blocks an SM and waves of each kernel, and B2's (clusters,
+   tiles a block, clusters resident at once).  B2 also runs at B = 16,
+   K = 32768 on rows built to stop at k = 0, at the last lane of its tile 0,
+   at the first lane of its second step (the blocks' first tiles, 8192
+   lanes, hold no stop) and never: bit-identical to the plain version, each
+   timed beside its bound.
 3. Main path: a seeded K = 32768, T = 1008 archive (132 MB of float32 T3 on
    the card) served through ``BatchServer.serve`` for 3 x 16 mixed
    requests, with the kernels' launch counters reset just before and read
@@ -29,10 +34,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    prefix sums (a tie, counted and printed).  Also counts the served
    single-type pools above ceil(R / c0) nodes (F5 in ROADMAP C; printed,
    not a gate).
-4. Live-ingest path (float32, then int8): a seeded synthetic feed over the
-   same K = 32768 catalog primes a rolling archive of capacity 1008 with 504
-   columns through ``EngineConfig.build_ingestor``, then absorbs 1512 ticks
-   (504 growing, 1008 sliding: one wrap; 600 on int8) through
+4. Live-ingest path (float32, int8, then bfloat16): a seeded synthetic
+   feed over the same K = 32768 catalog primes a rolling archive of
+   capacity 1008 with 504 columns through ``EngineConfig.build_ingestor``,
+   then absorbs 1512 ticks (504 growing, 1008 sliding: one wrap; 600 on
+   int8 and bf16) through
    ``LiveIngestor.poll``, kernel B3 ``stats_update`` once per tick, with the
    launch counters reset just before and read just after.  Every tick is
    replayed through B3's plain version on the same inputs (bit-identical
@@ -40,7 +46,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    are served through ``AdmissionQueue`` drains and compared with a CPU run
    on the snapshot's statistics as in phase 3; the final statistics are held
    against ``candidate_stats`` of the window at RTOL 1e-5 / ATOL 1e-4 and
-   the window against the feed.  Prints append latency and B3's times.
+   the window against the feed.  Prints append latency, B3's times and
+   the kernels and copies the device runs a poll.
 5. LM phases, one per architecture, each through ``lm_phase``:
    DeepSeek-V2-Lite (27 layers, 15.7 B parameters), ``rwkv6-7b`` (32
    layers, 8.88 B) and ``recurrentgemma-2b`` (26 layers, 3.55 B) at full
@@ -100,13 +107,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    ``torch.bmm(x, cat([w1, w3], -1))``'s (the two products alone, a
    yardstick, not ``library_ms``: no one call computes B7), prefill and
    decode, each pair from this run; the first versions' times of B5 and B7
-   and the previous times of B1 and B6 (from PERF.md) beside this run's;
+   and the previous times of B1, B6, B2 and B3 (from PERF.md) beside this
+   run's;
    the ``kernels`` JSON line, the card line, and last the ``ok`` line.
 
 Kernel device times come from ``torch.profiler``, summed over the kernels
 of the wrapper's own symbol (B4 ``flash_kernel``, B7 ``gmm_up_kernel``, B8
 ``gmm_down_kernel``, ...); a trace with device time but none under that
-name fails, so a renamed kernel cannot pass as an event time.  The build
+name fails, so a renamed kernel cannot pass as an event time; a trace that
+lost device records is taken again (``profiled``).  The build
 lines print each kernel's ptxas registers and spills and the dynamic
 shared memory of B4, B7, B8 and B5.
 
@@ -137,8 +146,11 @@ LATENCY_CALLS = 100    # serve() calls timed for p50 / p90 (10 samples above)
 # half of it, then one full wrap (504 growing ticks, 1008 sliding ones)
 INGEST_WINDOW = 1008
 INGEST_PRIME = 504
-INGEST_TICKS = {"float32": 1512, "int8": 600}
-INGEST_SERVE_AT = {"float32": (504, 1008, 1512), "int8": (600,)}
+INGEST_TICKS = {"float32": 1512, "int8": 600, "bfloat16": 600}
+INGEST_SERVE_AT = {"float32": (504, 1008, 1512), "int8": (600,),
+                   "bfloat16": (600,)}
+# bytes a stored sample of each ring tier
+TIER_BYTES = {"float32": 4, "int8": 1, "bfloat16": 2}
 # float operations of one candidate's tick in kernel B3: ten compensated
 # adds of 4, the update's 7 products and differences, the derivation's 21
 # (4 more decodes on the int8 tier)
@@ -205,9 +217,15 @@ TF32_OPS_PER_S = 495e12
 # printed beside this run's
 FIRST_VERSION_MS = {"rwkv6_scan": 0.544,
                     "moe_gmm": {"prefill": 0.810, "decode": 0.260}}
-# B1's and B6's device times before their K-split and shuffle rebuilds, as
-# recorded in PERF.md (one NVIDIA H100 80GB HBM3, 700 W)
-PREVIOUS_MS = {"score_fuse": 0.0247, "rglru_scan": 0.0471}
+# B1's, B6's, B2's and B3's device times before their rebuilds, as recorded
+# in PERF.md (one NVIDIA H100 80GB HBM3, 700 W): B2's two kernels without
+# the memset its launch issued before them, B3's float32 tier
+PREVIOUS_MS = {"score_fuse": 0.0247, "rglru_scan": 0.0471,
+               "pool_scan": 0.00769, "stats_update": 0.00165}
+# B2's edge rows: all-ones scores and capacities with R = 2e9 never stop
+# (top[k] = ceil(2e9 / (k + 1)) falls at every lane of K = 32768); a zero
+# score stops the scan at its lane
+NEVER_R = 2e9
 
 
 def fail(msg: str) -> None:
@@ -273,12 +291,53 @@ def same_bits(a, b) -> bool:
         ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def time_ms(fn, names: tuple[str, ...] | None, per_name: dict | None = None):
+def profiled(fn, calls: int, tries: int = 3) -> dict:
+    """Every device item (kernel, memcpy, memset) of ``calls`` calls of
+    ``fn`` from a ``torch.profiler`` trace: ``{name: (launches a call, device
+    ms a call, share of its launches recorded)}``.  The profiler can lose
+    device records (PERF.md, PR 22), which would read as a faster kernel:
+    so a discarded warm-up step comes first, an item's launches a call are
+    its recorded count over ``calls`` rounded (at least 1), its time the
+    mean of its recorded launches times that, and a trace that holds no
+    device item or lost a tenth of an item's launches is taken again, up to
+    ``tries`` times."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for n in (1, calls):     # the warm-up step, then the traced one
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        items = {}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or e.count == 0:
+                continue
+            n = max(1, round(e.count / calls))
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            items[e.key] = (n, us / e.count * n / 1e3, e.count / (n * calls))
+        lost = [k for k, (_, _, kept) in items.items() if kept < 0.9]
+        if items and not lost:
+            break
+        print(f"profiler trace {attempt + 1} of {calls} calls lost device "
+              f"records: {lost[:3] or 'all'}")
+    return items
+
+
+def time_ms(fn, names: tuple[str, ...] | None, per_name: dict | None = None,
+            matched: dict | None = None):
     """Median per-call CUDA-event time, and the per-call device time of the
     kernels whose names contain one of ``names`` (all kernels if ``None``)
     from a ``torch.profiler`` trace; the latter is ``None`` if the profiler
     records no device time.  ``per_name``, if given, receives each of
-    ``names``' own per-call device time."""
+    ``names``' own per-call device time; ``matched`` the full name of every
+    device item counted, with its launches and device ms a call and the
+    share of its launches the trace recorded (``profiled``)."""
     import torch
     for _ in range(3):
         fn()
@@ -294,31 +353,28 @@ def time_ms(fn, names: tuple[str, ...] | None, per_name: dict | None = None):
     call_ms = float(np.median([a.elapsed_time(b) for a, b in pairs]))
     prof_ms = None
     try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(TIME_REPS):
-                fn()
-            torch.cuda.synchronize()
+        items = profiled(fn, TIME_REPS)
     except RuntimeError as err:   # no CUPTI on this machine: events only
         print(f"profiler unavailable ({err}); kernel time from events")
         return call_ms, None
-    total_us, seen = 0.0, []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            seen.append(evt.key)
-        if names is None or any(n in evt.key for n in names):
-            total_us += dev_us
-        if per_name is not None:
-            for n in names or ():
-                if n in evt.key:
-                    per_name[n] = per_name.get(n, 0.0) + dev_us / 1e3 / TIME_REPS
-    if seen and total_us == 0:
+    if not items:
+        fail(f"the profiler recorded no device item of {names} in a trace")
+    total_ms, seen = 0.0, []
+    for key, (n, ms, kept) in items.items():
+        if ms > 0:
+            seen.append(key)
+        if names is None or any(name in key for name in names):
+            total_ms += ms
+            if matched is not None and ms > 0:
+                matched[key] = dict(launches=n, recorded=kept, ms=ms)
+        for name in names or ():
+            if per_name is not None and name in key:
+                per_name[name] = per_name.get(name, 0.0) + ms
+    if seen and total_ms == 0:
         # a renamed kernel must not turn a profiler time into an event time
         fail(f"the profiler recorded device time, but under no kernel named "
              f"{names}: {sorted(seen)[:8]}")
-    prof_ms = total_us / 1e3 / TIME_REPS if total_us > 0 else None
+    prof_ms = total_ms if total_ms > 0 else None
     return call_ms, prof_ms
 
 
@@ -359,6 +415,76 @@ def rglru_plan_line(torch, B, S, R) -> dict:
           f"{plan.waves:.2f} waves of tiles")
     return dict(sms=sms, tiles=plan.tiles, grid=plan.grid,
                 blocks_per_sm=per_sm, smem_bytes=smem, waves=plan.waves)
+
+
+def pool_scan_bound(B: int, K: int, scanned: int) -> tuple[float, str, int, int]:
+    """B2's bound (ms, what bounds it), bytes and operations: the counts
+    row written, s, c and csc read up to each request's stop, a division
+    pair and a few compares a scanned lane."""
+    nbytes = 4 * B * K + 12 * scanned + 4 * 3 * B
+    nops = 16 * scanned
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, nops)
+
+
+def pool_scan_plan_line(torch, ps, B: int, K: int) -> dict:
+    """B2's launch (``pool_scan_plan``) at (B, K), the kernel's compiled
+    geometry and how many of its clusters the card holds; printed and
+    returned."""
+    plan = ps.pool_scan_plan(B, K)
+    cluster, threads, lanes, resident = ps.geometry(DEVICE)
+    if (cluster, threads, lanes) != (plan.cluster, plan.threads, plan.lanes):
+        fail(f"pool_scan_plan {plan} disagrees with the kernel's "
+             f"{(cluster, threads, lanes)}")
+    print(f"B2 plan at B={B}, K={K}: {B} clusters of {cluster} blocks of "
+          f"{threads} threads, tiles of {plan.tile} lanes, at most "
+          f"{plan.tiles} a block; {resident} clusters resident at once")
+    return dict(cluster=cluster, threads=threads, tile=plan.tile,
+                tiles=plan.tiles,
+                resident_clusters=resident)
+
+
+def pool_scan_edges(torch, ps) -> dict:
+    """B2 at the serving width on rows that stop at k = 0, at the last lane
+    of tile 0 (every block scans it), at the first lane of the second step
+    (past the cluster's first tiles: the blocks walk and merge), and never:
+    bit-identical to the plain version, each timed beside its bound."""
+    B, K = B_FULL, K_FULL
+    plan = ps.pool_scan_plan(B, K)
+    out = {}
+    for name, stop in (("k0", 0), ("tile_end", plan.tile - 1),
+                       ("second_step", plan.cluster * plan.tile),
+                       ("never", None)):
+        s = torch.ones((B, K), device=DEVICE)
+        if stop is not None:
+            s[:, stop] = 0.0
+        c = torch.ones_like(s)
+        req = torch.full((B,), NEVER_R, device=DEVICE)
+        csc = ps._clamped_prefix_sums(s)
+        got = ps.pool_scan(s, c, req, csc)
+        want = ps.pool_scan(s, c, req, csc, backend="torch")
+        torch.cuda.synchronize()
+        for part, a, b in zip(("counts", "k_stop", "any_term"), got, want):
+            if not torch.equal(a, b):
+                fail(f"pool_scan on rows stopping at {name}: {part} differs "
+                     f"from the plain version")
+        stops = got[1].tolist() if bool(got[2].all()) else None
+        if stops != (None if stop is None else [stop] * B):
+            fail(f"pool_scan rows built to stop at {name} stopped at {stops}")
+        scanned = B * (K if stop is None else stop + 1)
+        bound, by, nbytes, _ = pool_scan_bound(B, K, scanned)
+        call_ms, dev_ms = time_ms(lambda: ps.pool_scan(s, c, req, csc),
+                                  ("pool_scan_kernel",))
+        out[name] = dict(stop=stop, scanned_lanes=scanned,
+                         ms=dev_ms if dev_ms is not None else call_ms,
+                         call_ms=call_ms, bound_ms=bound, bound_by=by,
+                         bytes=nbytes)
+    print("B2 edge rows (B=16, K=32768), bit-identical; device ms / bound ms: "
+          + "; ".join(f"{k} {v['ms']:.5f} / {v['bound_ms']:.6f}"
+                      for k, v in out.items()))
+    return out
 
 
 def kernel_phase(torch, cands, archive):
@@ -423,8 +549,7 @@ def kernel_phase(torch, cands, archive):
             sf_bytes = (4 * 6 * K + B * K + U * K + 4 * 5 * B + 4 * 3 * B * K
                         + 4 * 6 * U + 4 * B)
             sf_ops = 24 * B * K + 6 * U * K + 4 * B * K
-            ps_bytes = 4 * B * K + 12 * int(scanned.sum()) + 4 * 3 * B
-            ps_ops = 12 * int(scanned.sum()) + 4 * int(scanned.sum())
+            _, _, ps_bytes, ps_ops = pool_scan_bound(B, K, int(scanned.sum()))
             for name, kfn, pfn, nbytes, nops, knames in (
                     ("score_fuse", lambda: sf.score_fuse_batch(*args),
                      lambda: sf.score_fuse_batch(*args, backend="torch"),
@@ -432,8 +557,7 @@ def kernel_phase(torch, cands, archive):
                                         "score_emit_kernel")),
                     ("pool_scan", lambda: ps.pool_scan(s, c, amounts, csc),
                      lambda: ps.pool_scan(s, c, amounts, csc, backend="torch"),
-                     ps_bytes, ps_ops, ("pool_term_kernel",
-                                        "pool_emit_kernel"))):
+                     ps_bytes, ps_ops, ("pool_scan_kernel",))):
                 split = {}
                 call_ms, dev_ms = time_ms(kfn, knames, split)
                 plain_call_ms, plain_dev_ms = time_ms(pfn, None)
@@ -453,6 +577,8 @@ def kernel_phase(torch, cands, archive):
                     f"{k} {v:.5f}" for k, v in split.items())
                     + f" = {dev_ms if dev_ms is not None else float('nan'):.5f}")
             timings["pool_scan"]["scanned_lanes"] = int(scanned.sum())
+            timings["pool_scan"]["plan"] = pool_scan_plan_line(torch, ps, B, K)
+            timings["pool_scan"]["edges"] = pool_scan_edges(torch, ps)
             timings["score_fuse"]["plan"] = score_plan_line(
                 torch, sf, K, U + B, B, args)
     for name, e in err.items():
@@ -699,7 +825,7 @@ def ingest_phase(torch, catalog, precision: str):
 
     # the stored window against the feed, the statistics against a recompute
     host = feed.window(arch.window_len)
-    if quantized:
+    if precision != "float32":
         codes = compression.quantize_window(host, arch.scale.cpu().numpy(),
                                             precision)
         host = compression.dequantize_window(codes, arch.scale.cpu(),
@@ -728,11 +854,14 @@ def ingest_phase(torch, catalog, precision: str):
     args = (arch._moments, y_new, arch._buf[arch._pos],
             arch._buf[arch._start], y_new, arch.window_len, True)
     kw = dict(scale=arch.scale if quantized else None)
+    plan = su.stats_update_plan(K, torch.cuda.get_device_properties(0)
+                                .multi_processor_count)
+    matched = {}
     call_ms, dev_ms = time_ms(lambda: su.stats_update(*args, **kw),
-                              ("stats_update_kernel",))
+                              ("stats_update_kernel",), matched=matched)
     plain_call_ms, plain_dev_ms = time_ms(
         lambda: su.stats_update(*args, **kw, backend="torch"), None)
-    col_bytes = (1 if quantized else 4) * 4 * K
+    col_bytes = TIER_BYTES[precision] * 4 * K
     nbytes = 4 * 7 * K + col_bytes + (4 * K if quantized else 0) + 4 * 9 * K
     nops = (B3_FLOPS + (4 if quantized else 0)) * K
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -744,7 +873,9 @@ def ingest_phase(torch, catalog, precision: str):
               else plain_call_ms,
               plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
               bound_by="bytes" if t_bytes >= t_ops else "operations",
-              bytes=nbytes, ops=nops, max_abs_err=max_err)
+              bytes=nbytes, ops=nops, max_abs_err=max_err,
+              plan=dict(blocks=plan.blocks, threads=plan.threads),
+              kernels=matched)
     report = dict(
         K=K, capacity=INGEST_WINDOW, prime_columns=INGEST_PRIME,
         ticks=n_ticks, grow_ticks=INGEST_WINDOW - INGEST_PRIME,
@@ -762,8 +893,10 @@ def ingest_phase(torch, catalog, precision: str):
 
 def profile_ingest(torch, ing, feed, n: int = 50):
     """``n`` more ticks under ``torch.profiler``: per poll, the wall time,
-    the device's busy time and idle share, and the largest host and device
-    items (self time, per poll)."""
+    the device's busy time and idle share, the kernels and the copies
+    (memcpy, memset) the device ran, and the largest host and device items
+    (self time, per poll)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -775,6 +908,7 @@ def profile_ingest(torch, ing, feed, n: int = 50):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     host, dev = [], []
+    items = {"kernels": 0, "copies": 0}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
@@ -782,11 +916,16 @@ def profile_ingest(torch, ing, feed, n: int = 50):
             dev.append((dev_us / 1e3 / n, evt.key[:60]))
         if evt.self_cpu_time_total > 0:
             host.append((evt.self_cpu_time_total / 1e3 / n, evt.key[:60]))
+        if evt.device_type == DeviceType.CUDA:
+            copy = evt.key.startswith(("Memcpy", "Memset"))
+            items["copies" if copy else "kernels"] += evt.count
     dev.sort(reverse=True)
     host.sort(reverse=True)
     busy = sum(ms for ms, _ in dev)
     return dict(polls=n, wall_ms_per_poll=wall_ms, device_busy_ms_per_poll=busy,
                 idle_share=1 - busy / wall_ms if wall_ms > 0 else None,
+                kernels_per_poll=items["kernels"] / n,
+                copies_per_poll=items["copies"] / n,
                 device_top=[[round(ms, 5), k] for ms, k in dev[:6]],
                 host_top=[[round(ms, 5), k] for ms, k in host[:10]])
 
@@ -1764,11 +1903,18 @@ def main() -> None:
     print("main path: " + json.dumps(report))
     print("serve profile: " + json.dumps(profile_serve(torch, cands)))
     del archive
-    for precision in ("float32", "int8"):
+    for precision in ("float32", "int8", "bfloat16"):
         t0 = time.perf_counter()
         ingest_launches, ingest = ingest_phase(torch, cands, precision)
         ingest["phase_s"] = time.perf_counter() - t0
         print(f"ingest {precision}: " + json.dumps(ingest))
+        prof = ingest["profile"]
+        print(f"ingest {precision}: {prof['kernels_per_poll']:.2f} kernels "
+              f"and {prof['copies_per_poll']:.2f} copies a poll on the "
+              f"device; B3 {ingest['b3']['ms']:.5f} ms a tick, timed as "
+              + "; ".join(f"{k} x {v['launches']} ({v['recorded']:.2f} "
+                          f"recorded)"
+                          for k, v in ingest['b3']['kernels'].items()))
         if precision == "float32":
             launches["stats_update"] = ingest_launches["stats_update"]
             timings["stats_update"] = ingest["b3"]
@@ -1834,10 +1980,13 @@ def main() -> None:
               old["moe_gmm"]["decode"], b7["decode"]["ms"]))
     b1 = timings["score_fuse"]
     print("previous version (PERF.md) -> this run, device ms: B1 {:.5f} -> "
-          "{:.5f} ({}); B6 {:.5f} -> {:.5f}".format(
+          "{:.5f} ({}); B6 {:.5f} -> {:.5f}; B2 {:.5f} -> {:.5f}; B3 "
+          "float32 {:.5f} -> {:.5f}".format(
               PREVIOUS_MS["score_fuse"], b1["ms"],
               ", ".join(f"{k} {v:.5f}" for k, v in b1["kernel_ms"].items()),
-              PREVIOUS_MS["rglru_scan"], timings["rglru_scan"]["ms"]))
+              PREVIOUS_MS["rglru_scan"], timings["rglru_scan"]["ms"],
+              PREVIOUS_MS["pool_scan"], timings["pool_scan"]["ms"],
+              PREVIOUS_MS["stats_update"], timings["stats_update"]["ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

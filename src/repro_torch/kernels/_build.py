@@ -166,6 +166,16 @@ def tma_ready(t: torch.Tensor) -> bool:
         (st * t.element_size()) % 16 == 0 for st in t.stride()[:-1])
 
 
+def rows_aligned(K: int, tensors) -> bool:
+    """Whether a kernel may move 4 lanes at a time (16 bytes of float32 or
+    int32, 8 of bf16, 4 of int8) along every row of length K of
+    ``tensors``: K a multiple of 4 and each tensor's first element on a
+    boundary of 4 of its elements.  Each row of a contiguous (n, K) tensor
+    then starts on one as well."""
+    return K % 4 == 0 and all(
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
+
+
 def forbid_autograd(kernel: str, *tensors) -> None:
     """Raise ``NotImplementedError`` when grad is enabled and one of
     ``tensors`` requires grad: the kernels have no backward (neither do the

@@ -27,11 +27,17 @@ Two versions, one contract, both batched over a leading request axis:
 - the plain PyTorch version (:func:`_pool_scan_torch`), which CPU tensors
   take and ``backend="torch"`` forces;
 - the CUDA kernel ``csrc/pool_scan.cu`` (:func:`_pool_scan_cuda`), which
-  CUDA tensors take.  Every lane computes its own termination flag (no
-  sequential carry) and the first terminating k is found with an atomic;
-  its outputs equal the plain version's bit for bit on the same inputs.
+  CUDA tensors take: one launch, a thread-block cluster a request.  Every
+  block scans the first tile of :func:`pool_scan_plan`, which holds the
+  stop in the serving mix; otherwise the blocks walk their own tiles in
+  order, each to its first terminating lane or its last tile, and merge
+  once.  Then they write the counts row, 16 bytes a thread on aligned rows
+  (mirrored on the CPU in ``tests/test_torch_schedules.py``).  Its outputs
+  equal the plain version's bit for bit on the same inputs.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -87,20 +93,72 @@ def _pool_scan_torch(s, c, csc, required):
     return _emit_row(s, c, required, csc, k_best, deg), k_stop, found
 
 
+CLUSTER = 8           # blocks a request: one thread-block cluster
+THREADS = 256         # threads a block
+LANES = 4             # adjacent lanes a thread: one 16-byte access
+TILE = THREADS * LANES
+
+
+@dataclass(frozen=True)
+class PoolScanPlan:
+    """B2's launch: a (``cluster``, B) grid of clusters of ``cluster``
+    blocks.  Lanes come in tiles of ``tile``, ``lanes`` adjacent lanes a
+    thread; block r's e-th tile is tile ``e * cluster + r``.  Every block
+    scans tile 0; past it a block walks at most its ``tiles`` tiles (block
+    0 from its second), in order; each writes the counts row over its own
+    tiles."""
+
+    cluster: int
+    threads: int
+    lanes: int
+    tile: int
+    tiles: int
+    grid: tuple[int, int]
+
+
+def pool_scan_plan(B: int, K: int) -> PoolScanPlan:
+    """The kernel's grid and tiles a block for B requests of K lanes."""
+    if not 1 <= B <= 65535:
+        raise ValueError("the kernel takes 1 to 65535 requests a call")
+    return PoolScanPlan(cluster=CLUSTER, threads=THREADS, lanes=LANES,
+                        tile=TILE, tiles=-(-K // (CLUSTER * TILE)),
+                        grid=(CLUSTER, B))
+
+
+def block_lanes(plan: PoolScanPlan, K: int, e: int, r: int) -> range:
+    """Lanes of block ``r``'s ``e``-th tile."""
+    k0 = (e * plan.cluster + r) * plan.tile
+    return range(min(k0, K), min(k0 + plan.tile, K))
+
+
+def _library():
+    return _build.library("pool_scan", {"pool_scan_launch": (7, 4)})
+
+
+def geometry(device) -> tuple[int, int, int, int]:
+    """``(cluster, threads, lanes)`` as the kernel was compiled, and how
+    many of its clusters ``device`` holds at once."""
+    return _build.int_outputs(_library(), "pool_scan_geometry", 4,
+                              torch.device(device))
+
+
 def _pool_scan_cuda(s, c, csc, required):
     B, K = s.shape
     dev = s.device
     new = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)  # noqa: E731
-    counts, k_stop, any_term, enc = new(B, K), new(B), new(B), new(B)
-    lib = _build.library("pool_scan", {"pool_scan_launch": (8, 2)})
+    counts, k_stop = new(B, K), new(B)
+    any_term = torch.empty(B, dtype=torch.bool, device=dev)
+    plan = pool_scan_plan(B, K)
+    vec = _build.rows_aligned(K, (s, c, csc, counts))
+    lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.pool_scan_launch(
             s.data_ptr(), c.data_ptr(), csc.data_ptr(), required.data_ptr(),
-            enc.data_ptr(), counts.data_ptr(), k_stop.data_ptr(),
-            any_term.data_ptr(), B, K, stream), "pool_scan_launch")
+            counts.data_ptr(), k_stop.data_ptr(), any_term.data_ptr(), B, K,
+            plan.tiles, int(vec), stream), "pool_scan_launch")
     pool_scan.launches += 1
-    return counts, k_stop, any_term != 0
+    return counts, k_stop, any_term
 
 
 def pool_scan(s, c, required, csc=None, *, backend: str | None = None):
@@ -127,8 +185,6 @@ def pool_scan(s, c, required, csc=None, *, backend: str | None = None):
     for t, name in ((s2, "s"), (c2, "c"), (csc2, "csc")):
         _build.expect(t, name, (B, K), (torch.float32,), dev)
     if _build.route(backend, dev) == "cuda":
-        if B > 65535:
-            raise ValueError("the kernel takes at most 65535 requests a call")
         out = _pool_scan_cuda(s2, c2, csc2, req)
     else:
         out = _pool_scan_torch(s2, c2, csc2, req)

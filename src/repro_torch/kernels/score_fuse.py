@@ -154,8 +154,7 @@ def vec_ok(K: int, floats, bytes_) -> bool:
     multiple of 4 (so rows 1 and 2 of ``stats`` and every (B, K) row start
     on a 16-byte boundary when row 0 does), every float array on a 16-byte
     boundary and every byte-mask array on a 4-byte one."""
-    return (K % LANES == 0 and all(t.data_ptr() % 16 == 0 for t in floats)
-            and all(t.data_ptr() % 4 == 0 for t in bytes_))
+    return _build.rows_aligned(K, (*floats, *bytes_))
 
 
 def _library():

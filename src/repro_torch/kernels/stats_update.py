@@ -26,10 +26,12 @@ Two versions, one contract:
 - the plain PyTorch version (:func:`_stats_update_torch`), which CPU
   tensors take and ``backend="torch"`` forces;
 - the CUDA kernel B3, ``csrc/stats_update.cu`` (:func:`_stats_update_cuda`),
-  which CUDA tensors take: one elementwise pass over K that reads the six
-  moment halves, ``ref`` and the four columns (int8 codes and a scale row on
-  the quantized tier) and writes the six new halves and the statistics.  It
-  is built with ``--fmad=false`` and keeps the op order of
+  which CUDA tensors take: one elementwise pass over K, a candidate a
+  thread on the grid of :func:`stats_update_plan`, that reads the six
+  moment halves, ``ref`` and the four columns (float32; bf16, widened in
+  registers; or int8 codes and a scale row on the quantized tier), every
+  load before any arithmetic, and writes the six new halves and the
+  statistics.  It is built with ``--fmad=false`` and keeps the op order of
   :func:`_update_tile`, so on the same inputs it equals the plain version
   bit for bit.
 
@@ -41,6 +43,7 @@ no product and stay bit-equal.)
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
@@ -163,12 +166,36 @@ def _update_tile(s0, s0c, s1, s1c, q, qc, ref, y_new, y_old, y_first, y_last,
 
 def _stats_update_torch(moments, cols, length, evict, scale):
     L = f32(length, moments.s0.device)
+    cols = tuple(y.to(torch.float32) if y.dtype == torch.bfloat16 else y
+                 for y in cols)                      # exact
     return _update_tile(*moments, *cols, L, evict, scale)
 
 
 # ---------------------------------------------------------------------------
 # CUDA kernel B3.
 # ---------------------------------------------------------------------------
+
+MAX_THREADS = 256
+COLUMN_KINDS = {torch.float32: 0, torch.int8: 1, torch.bfloat16: 2}
+
+
+@dataclass(frozen=True)
+class StatsUpdatePlan:
+    """B3's grid: ``blocks`` of ``threads``, a candidate a thread (thread i
+    of the grid takes candidate i)."""
+
+    blocks: int
+    threads: int
+
+
+def stats_update_plan(K: int, sms: int) -> StatsUpdatePlan:
+    """The widest power-of-two block (32 to ``MAX_THREADS`` threads) that
+    still gives every one of ``sms`` SMs a block."""
+    threads = 32
+    while threads < MAX_THREADS and K // (2 * threads) >= sms:
+        threads *= 2
+    return StatsUpdatePlan(blocks=-(-K // threads), threads=threads)
+
 
 def _stats_update_cuda(moments, cols, length, evict, scale):
     K = moments.s0.shape[0]
@@ -177,14 +204,16 @@ def _stats_update_cuda(moments, cols, length, evict, scale):
     # (area, slope, std).  Fresh every tick, so statistics a snapshot holds
     # are never overwritten by a later tick.
     out = torch.empty((9, K), dtype=torch.float32, device=dev)
-    lib = _build.library("stats_update", {"stats_update_launch": (13, 3, 1)})
+    plan = stats_update_plan(K, _build.sm_count(dev))
+    lib = _build.library("stats_update", {"stats_update_launch": (13, 5, 1)})
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _build.check(lib.stats_update_launch(
             *(ptr(m) for m in moments), *(ptr(c) for c in cols), ptr(scale),
-            ptr(out), K, int(evict), int(scale is not None), float(length),
-            stream), "stats_update_launch")
+            ptr(out), K, int(evict), COLUMN_KINDS[cols[0].dtype], plan.blocks,
+            plan.threads, float(length), stream),
+            "stats_update_launch")
     stats_update.launches += 1
     return (StreamMoments(*out[:6], moments.ref),
             scoring.CandidateStats(*out[6:]))
@@ -210,8 +239,11 @@ def stats_update(moments: StreamMoments, y_new, y_old, y_first, y_last,
         Whether the window was full (slide) or still growing (append only).
     scale : (K,) float32, optional
         The int8 tier: the four columns are stored int8 codes, decoded
-        ``code * scale`` inside the update.  bf16 columns take the
-        ``scale=None`` path after an exact cast to float32.
+        ``code * scale`` inside the update.  Without it the columns are
+        float32, or all four bf16 tensors (the bf16 tier), which the kernel
+        widens in registers and the plain version casts, both exactly;
+        other columns are cast to float32.  bf16 columns with a ``scale``
+        raise.
 
     Returns ``(new_moments, CandidateStats)``, new tensors (the inputs are
     not written).  CPU tensors take the plain PyTorch version, CUDA tensors
@@ -224,9 +256,17 @@ def stats_update(moments: StreamMoments, y_new, y_old, y_first, y_last,
     if K < 1:
         raise ValueError("stats_update needs K >= 1")
     cols = (y_new, y_old, y_first, y_last)
-    if scale is None:
+    bf16 = [isinstance(y, torch.Tensor) and y.dtype == torch.bfloat16
+            for y in cols]
+    if scale is None and all(bf16):
+        cols = tuple(y.to(dev) for y in cols)
+        col_dtype = (torch.bfloat16,)
+    elif scale is None:
         cols = tuple(f32(y, dev) for y in cols)
         col_dtype = (torch.float32,)
+    elif any(bf16):
+        raise TypeError("bf16 columns take no scale: only int8 codes are "
+                        "decoded with one")
     else:
         cols = tuple((y if isinstance(y, torch.Tensor)
                       else torch.from_numpy(np.ascontiguousarray(y))).to(dev)

@@ -189,9 +189,14 @@ class RollingDeviceArchive:
         Encodes ``column`` at the ring's tier, rank-1-updates the moments
         and statistics (one launch of kernel B3 on the card), writes the
         slot under the cursor in place, bumps :attr:`version` and drops the
-        memoised window.  Returns ``self``.
+        memoised window.  Returns ``self``.  A host column on the bf16
+        tier is encoded before the upload (the same round-to-nearest-even
+        cast), so the card runs no cast for it.
         """
-        col = f32(column, self.device)
+        # bf16 encodes where the column is (the host, for a collector's
+        # array): the upload carries bf16 and the card runs no cast
+        col = f32(column, None if self.precision == "bfloat16"
+                  else self.device)
         if tuple(col.shape) != (len(self.host),):
             raise ValueError(
                 f"column shape {tuple(col.shape)} != ({len(self.host)},)")
@@ -202,6 +207,7 @@ class RollingDeviceArchive:
                      else (slot + 1 - new_len) % self.capacity)
         codes, n_clip = compression.quantize_column(col, self.scale,
                                                     self.precision)
+        codes = codes.to(self.device)
         if self.precision == "int8":
             self._clips += n_clip
         # Read before write: ``y_old`` is a view of the slot about to be

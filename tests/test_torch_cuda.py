@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 from _bf16_helpers import assert_within_ulp
+from _scan_rows import scan_rows, stop_lanes
 
 from repro_torch import convert
 from repro_torch.core import pool as tpool
@@ -188,6 +189,89 @@ def test_pool_scan_kernel_on_adversarial_rows(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("K", [3000, 32768, 32771, 40960])
+def test_pool_scan_kernel_on_late_and_missing_terminations(cuda, K):
+    """B2 on rows that stop at k = 0, at the edges of its tiles and steps
+    and never, on the 16-byte path (K = 32768), lane by lane (K % 4 != 0)
+    and on rows that start off a 16-byte boundary."""
+    plan = tps.pool_scan_plan(1, K)
+    stops = stop_lanes(K, plan.cluster, plan.tile)
+    s, c, req, n = scan_rows(K, stops, seed=K)
+    st, ct, rt = (torch.as_tensor(x, device=cuda) for x in (s, c, req))
+    csc = tps._clamped_prefix_sums(st)
+    want = tps.pool_scan(st, ct, rt, csc, backend="torch")
+    assert want[1][:n].tolist() == stops and bool(want[2][:n].all())
+    assert not bool(want[2][n])                    # the row that never stops
+    got = tps.pool_scan(st, ct, rt, csc)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    off = lambda x: torch.empty(x.numel() + 1, device=cuda)[1:].view(  # noqa: E731
+        x.shape).copy_(x)
+    for a, b in zip(tps.pool_scan(off(st), off(ct), rt, off(csc)), want):
+        assert torch.equal(a, b)
+    # two stops in different blocks' later tiles: each block ends at its
+    # own, and the merge keeps the first
+    step = plan.cluster * plan.tile
+    pairs = [(x, y) for x, y in ((step + 10, step + plan.tile + 3),
+                                 (3 * step + 10, 3 * step + plan.tile + 3),
+                                 (2 * step + 2 * plan.tile, step + 5 * plan.tile),
+                                 (4 * step + 10, 4 * step + plan.tile + 3))
+             if max(x, y) < K]
+    if pairs:
+        two = torch.ones((len(pairs), K), device=cuda)
+        for i, (x, y) in enumerate(pairs):
+            two[i, x] = two[i, y] = 0.0
+        ones, r2 = torch.ones_like(two), rt[:len(pairs)]
+        csc2 = tps._clamped_prefix_sums(two)
+        got = tps.pool_scan(two, ones, r2, csc2)
+        want = tps.pool_scan(two, ones, r2, csc2, backend="torch")
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert got[1].tolist() == [min(x, y) for x, y in pairs]
+
+
+def _device_items(fn):
+    """Kernels and copies (memcpy / memset) of one call of ``fn`` after a
+    warm-up call, by name and count, from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels, copies = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            into = copies if e.key.startswith(("Memcpy", "Memset")) else kernels
+            into[e.key] = into.get(e.key, 0) + e.count
+    return kernels, copies
+
+
+def test_one_launch_per_pool_scan_call_and_per_tick(cuda):
+    """A B2 call is one kernel and nothing else on the device; a tick
+    launches B3 once on every tier, and on the bf16 tier no other kernel
+    (the column is encoded on the host, the kernel widens bf16 itself)."""
+    K = 32768
+    s, c, req, _ = scan_rows(K, [5], seed=1)
+    st, ct, rt = (torch.as_tensor(x, device=cuda) for x in (s, c, req))
+    csc = tps._clamped_prefix_sums(st)
+    kernels, copies = _device_items(lambda: tps.pool_scan(st, ct, rt, csc))
+    assert list(kernels.values()) == [1] and not copies, (kernels, copies)
+    assert "pool_scan_kernel" in next(iter(kernels))
+    cands = _world(4000, T=48, seed=2)
+    rng = np.random.default_rng(2)
+    for precision in ("float32", "int8", "bfloat16"):
+        arch = RollingDeviceArchive(cands, device=cuda, capacity=48, name="x",
+                                    precision=precision)
+        kernels, _ = _device_items(
+            lambda: arch.append(rng.uniform(0.0, 50.0, 4000)))
+        b3 = sum(n for k, n in kernels.items() if "stats_update_kernel" in k)
+        assert b3 == 1, (precision, kernels)
+        if precision == "bfloat16":
+            assert sum(kernels.values()) == 1, kernels
+
+
 def test_main_path_matches_cpu_run(cuda):
     """Card against CPU on the card's statistics: score rows bit-identical,
     scans identical unless ``prefix_sum_tie`` flags an F1 tie."""
@@ -255,9 +339,44 @@ def test_stats_update_kernel_matches_plain_version(cuda, quantized):
             assert _same(a, b)
 
 
+@pytest.mark.parametrize("K", [3001, 4096, 524288, 524291])
+@pytest.mark.parametrize("tier", ["float32", "int8", "bfloat16"])
+def test_stats_update_kernel_on_every_tier(cuda, tier, K):
+    """B3 against its plain version over a growing and a sliding stream on
+    each tier, on blocks of one warp (K = 3001, 4096) and of 256 threads
+    (524288, 524291): moments and statistics bit-identical at every tick.  The bf16 columns reach the kernel as bf16."""
+    rng = np.random.default_rng(K)
+    C, ticks = (64, 150) if K < 10 ** 5 else (16, 30)
+    series = rng.uniform(0.0, 50.0, (K, C + ticks)).astype(np.float32)
+    scale = scale_np = None
+    cols = torch.as_tensor(series, device=cuda).T.contiguous()
+    if tier == "int8":
+        scale_np = tcomp.candidate_scales(series, "int8")
+        series = tcomp.quantize_window(series, scale_np, "int8").numpy()
+        scale = torch.as_tensor(scale_np, device=cuda)
+        cols = torch.as_tensor(series, device=cuda).T.contiguous()
+    elif tier == "bfloat16":
+        cols = cols.to(torch.bfloat16)
+        series = cols.T.float().cpu().numpy()
+    mk = mp = tsu.moments_from_window(series[:, :8], scale=scale_np,
+                                      device=cuda)
+    lo = 0
+    for t in range(8, series.shape[1]):
+        evict = t - lo == C
+        lo += evict
+        args = (cols[t], cols[lo - 1] if evict else cols[t], cols[lo],
+                cols[t], t + 1 - lo, evict)
+        before = tsu.stats_update.launches
+        mk, sk = tsu.stats_update(mk, *args, scale=scale)
+        assert tsu.stats_update.launches == before + 1
+        mp, sp = tsu.stats_update(mp, *args, scale=scale, backend="torch")
+        for a, b in zip((*mk, *sk), (*mp, *sp)):
+            assert _same(a, b), (tier, K, t)
+
+
 def test_rolling_archive_on_the_card_matches_cpu(cuda):
-    """The int8 and float32 rings on the card against the same rings on the
-    CPU: stored windows, statistics and clip counts bit-identical."""
+    """The float32, int8 and bf16 rings on the card against the same rings
+    on the CPU: stored windows, statistics and clip counts bit-identical."""
     cands = _world(4000, T=48, seed=9)
     rng = np.random.default_rng(9)
     for precision in ("float32", "int8", "bfloat16"):

@@ -16,7 +16,11 @@ sources.  B6 (``rglru_scan.launch_plan`` / ``block_work``) must scan every
 (batch, channel) exactly once; B1 (``score_fuse.score_plan``) must reduce
 every (row, lane) and emit every (request, lane) exactly once, run at least
 one reduce block an SM at the serving shape, and take its 16-byte path only
-on 16-byte-aligned rows.
+on 16-byte-aligned rows.  B2 (``pool_scan.pool_scan_plan``) must scan and
+emit every lane of a request exactly once, on a grid whose x extent is one
+cluster, and take 4 lanes at a time only where ``_build.rows_aligned``
+allows; B3 (``stats_update.stats_update_plan``) must update every candidate
+once on at least one block an SM at K = 32768.
 """
 import shutil
 
@@ -24,12 +28,15 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.core  # noqa: F401  (imports the kernels in package order)
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import moe_gmm as tgmm
+from repro_torch.kernels import pool_scan as tps
 from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import rwkv6_scan as twkv
 from repro_torch.kernels import score_fuse as tsf
+from repro_torch.kernels import stats_update as tsu
 
 SMEM_LIMIT = 232448          # a block's shared memory on an H100 (227 KB)
 H100_SMS = 132
@@ -334,3 +341,80 @@ def test_score_vector_path_only_on_aligned_rows():
     assert not tsf.vec_ok(K, floats, [moff])
     # and the plan records the decision it was given
     assert tsf.score_plan(K, 2, H100_SMS, False).vec is False
+
+
+# ---------------------------------------------------------------------------
+# B2: one cluster a request, each block walking every cluster-th tile
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K", [1, 3, 4, 1023, 1025, 8192, 8193, 32768, 32771,
+                               1 << 20])
+@pytest.mark.parametrize("B", [1, 16, 65535])
+def test_pool_scan_plan_covers_every_lane_once(B, K):
+    plan = tps.pool_scan_plan(B, K)
+    assert plan.grid == (plan.cluster, B)
+    assert plan.grid[0] % plan.cluster == 0 and plan.grid[1] <= 65535
+    assert 1 <= plan.cluster <= 8                        # portable cluster
+    assert plan.tile == plan.threads * plan.lanes
+    assert plan.tile % 4 == 0                            # 16-byte accesses
+    # every lane scanned (and emitted: the same tiles) once; a block's
+    # tiles, and the e-th tiles across the cluster, in lane order
+    seen = np.zeros(K, np.int64)
+    starts = []
+    for e in range(plan.tiles):
+        for r in range(plan.cluster):
+            lanes = tps.block_lanes(plan, K, e, r)
+            seen[lanes.start:lanes.stop] += 1
+            starts += [lanes.start]
+    assert (seen == 1).all()
+    assert starts == sorted(starts)
+    # a block's last tile is the first to hold no lane for some block
+    assert (plan.tiles - 1) * plan.cluster * plan.tile < K
+
+
+def test_pool_scan_plan_refuses_grids_the_card_cannot_launch():
+    for B in (0, 65536):
+        with pytest.raises(ValueError):
+            tps.pool_scan_plan(B, 16)
+    # the serving shape: the blocks' first tiles hold the first 8192
+    # lanes, 4 tiles a block all
+    plan = tps.pool_scan_plan(16, 32768)
+    assert plan.cluster * plan.tile == 8192 and plan.tiles == 4
+
+
+def test_pool_scan_16_byte_path_only_on_aligned_rows():
+    K = 64
+    f32, i32 = torch.zeros(9, K), torch.zeros(3, K, dtype=torch.int32)
+    assert _build.rows_aligned(K, [f32, f32[3], i32, i32[1]])
+    # K not a multiple of 4: row 1 of a (9, K) tensor is off the boundary
+    assert not _build.rows_aligned(K - 1, [torch.zeros(9, K - 1)])
+    assert not _build.rows_aligned(K + 2, [torch.zeros(9, K + 2)])
+    # first elements off a boundary of 4 elements
+    assert not _build.rows_aligned(K, [torch.zeros(K + 1)[1:]])
+    assert not _build.rows_aligned(
+        K, [f32, torch.zeros(K + 2, dtype=torch.int32)[2:]])
+    assert _build.rows_aligned(K, [torch.zeros(K + 4)[4:]])
+
+
+# ---------------------------------------------------------------------------
+# B3: a candidate a thread, at least one block an SM
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K", [1, 3, 255, 3001, 4096, 32768, 32771, 270336,
+                               1 << 20, (1 << 20) + 3])
+def test_stats_update_plan_covers_every_candidate_once(K):
+    plan = tsu.stats_update_plan(K, H100_SMS)
+    assert plan.threads % 32 == 0 and plan.threads <= tsu.MAX_THREADS
+    assert plan.blocks * plan.threads >= K               # thread i, candidate i
+    assert plan.blocks == -(-K // plan.threads)          # no idle block
+
+
+def test_stats_update_fills_the_card_at_the_serving_shape():
+    plan = tsu.stats_update_plan(32768, H100_SMS)
+    assert plan.blocks >= H100_SMS and plan.threads == 128
+    # the widest block once every SM gets two
+    wide = tsu.stats_update_plan(1 << 20, H100_SMS)
+    assert wide.threads == tsu.MAX_THREADS and wide.blocks >= 2 * H100_SMS
+    # a small K still spreads over the SMs, on blocks of one warp
+    small = tsu.stats_update_plan(3001, H100_SMS)
+    assert small.threads == 32 and small.blocks == 94

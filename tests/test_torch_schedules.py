@@ -1,5 +1,6 @@
-"""The schedules of kernels B6 (``csrc/rglru_scan.cu``) and B1
-(``csrc/score_fuse.cu``), mirrored in PyTorch on the CPU.
+"""The schedules of kernels B6 (``csrc/rglru_scan.cu``), B1
+(``csrc/score_fuse.cu``) and B2 (``csrc/pool_scan.cu``), mirrored in
+PyTorch on the CPU, and B3's bf16 columns.
 
 B6 runs the Pallas body's doubling with a chunk's 128 rows spread over a
 warp, lane l holding rows l, l + 32, l + 64, l + 96: offsets 1-16 move values
@@ -20,18 +21,43 @@ must equal the plain version's and the reference's ``stat_extrema`` /
 with NaN, +-0, a one-lane mask and an all-but-one-lane mask among the
 inputs.
 
+B2 gives each block of a request's cluster every cluster-th tile of
+``pool_scan_plan``, 4 adjacent lanes a thread, each lane taking ``prev``
+from the lane before it (its own registers, the thread before it by a
+shuffle, or, for a warp's first thread, csc[k - 1]); a block keeps its
+warps' ballot-first lowest terminating lane (and csc of the lane before
+it, the winning prefix's sum).  Every block scans tile 0; if the stop lies
+there, that is the answer.  Else each block walks its tiles in order
+(block 0 from its second) until it finds a terminating lane or runs out,
+and the blocks' firsts merge by a min.  Every block then writes the counts
+row over its own tiles.  :func:`pool_walk` takes that order and must equal
+the plain version ``_pool_scan_torch`` bit for bit, and the JAX
+reference's ``_pool_scan_lax`` up to counted F1 prefix-sum ties, on rows
+that stop at k = 0, at tile edges and never, with zero and negative tails
+and all-equal scores.
+
+B3's plain version must give bf16 columns the bits of their float32 casts,
+and the wrapper must refuse bf16 columns that come with an int8 scale.
+
 Seeded numpy inputs; no hypothesis.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _scan_rows import scan_rows, stop_lanes
+from repro.kernels import pool_scan as jps
 from repro.kernels import rglru_scan as jrg
 from repro.kernels import score_fuse as jsf
+from repro_torch.core import pool as tpool
+from repro_torch.kernels import pool_scan as tps
 from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import score_fuse as tsf
+from repro_torch.kernels import stats_update as tsu
 
 H100_SMS = 132
 INF = float("inf")
@@ -285,3 +311,213 @@ def test_b1_k_split_equals_reference_extrema_and_cost_min(K, B):
         c = jsf.cost_min(prices, vcpus, mem, masks[b], bool(use[b]),
                          np.float32(amount[b]))
         assert same_bits(cmin[b], torch.tensor(float(c)))
+
+
+# ---------------------------------------------------------------------------
+# B2
+# ---------------------------------------------------------------------------
+
+NONE = 2 ** 31 - 1
+
+
+def _ceil_i32(x):
+    return torch.ceil(x).to(torch.int32)
+
+
+def _scan_tile(s, c, csc, R, c0, s0R, K, plan, e, r):
+    """Block r's e-th tile of one row: its first terminating lane (its
+    warps' ballot-first lanes, the least of them; NONE) and csc of the lane
+    before it."""
+    W = plan.threads // 32
+    k0 = (e * plan.cluster + r) * plan.tile
+    k = k0 + torch.arange(plan.tile).reshape(W, 32, plan.lanes)
+    inb = k < K
+    kc = k.clamp(max=K - 1)
+    sv = torch.where(inb, s[kc], 0.0)
+    cv = torch.where(inb, c[kc], 1.0)
+    cs = torch.where(inb, csc[kc], 1.0)
+    top = _ceil_i32(s0R / (cs * c0))
+    # lane j > 0: the thread's own registers; j = 0: __shfl_up_sync of the
+    # thread before's last top (lane 0 of a warp keeps its own, then
+    # computes it from csc[k - 1])
+    last, cs_last = top[:, :, -1], cs[:, :, -1]
+    up = torch.cat([last[:, :1], last[:, :-1]], 1)
+    cs_up = torch.cat([cs_last[:, :1], cs_last[:, :-1]], 1)
+    first = k[:, 0, 0]
+    cs_prev = csc[(first - 1).clamp(0, K - 1)]
+    own = (first > 0) & (first < K)
+    up[:, 0] = torch.where(own, _ceil_i32(s0R / (cs_prev * c0)), up[:, 0])
+    cs_up[:, 0] = torch.where(own, cs_prev, cs_up[:, 0])
+    prev = torch.cat([up[..., None], top[..., :-1]], -1)
+    cs_before = torch.cat([cs_up[..., None], cs[..., :-1]], -1)
+    newest = _ceil_i32(sv * R / (cs * cv))
+    term = torch.where(k == 0, newest == 0,
+                       (top >= prev) | (newest == 0)) & inb
+    has = term.any(-1)                                   # (W, 32)
+    j = term.int().argmax(-1)                            # lowest lane
+    mine = k[..., 0] + j
+    mine_cs = cs_before.gather(-1, j[..., None])[..., 0]
+    best, best_cs = NONE, 0.0
+    for w in range(W):
+        if has[w].any():                                 # the ballot
+            t = int(has[w].int().argmax())
+            if int(mine[w, t]) < best:                   # the block's min
+                best, best_cs = int(mine[w, t]), mine_cs[w, t]
+    return best, best_cs
+
+
+def pool_walk(s, c, csc, required):
+    """Kernel B2's cluster schedule on (B, K) rows: (counts, k_stop,
+    any_term) and the tiles each block scanned, (B, cluster)."""
+    B, K = s.shape
+    plan = tps.pool_scan_plan(B, K)
+    counts = torch.zeros((B, K), dtype=torch.int32)
+    k_stop = torch.zeros(B, dtype=torch.int32)
+    any_term = torch.zeros(B, dtype=torch.bool)
+    scanned = np.zeros((B, plan.cluster), np.int64)
+    for b in range(B):
+        R, c0 = required[b], c[b, 0]
+        s0R = s[b, 0] * R
+        # tile 0, every block alike: the answer when the stop lies there
+        tile0 = _scan_tile(s[b], c[b], csc[b], R, c0, s0R, K, plan, 0, 0)
+        scanned[b] += 1
+        firsts = [tile0] * plan.cluster
+        if tile0[0] == NONE:
+            for r in range(plan.cluster):     # the walk: block 0 from tile 1
+                for e in range(1 if r == 0 else 0, plan.tiles):
+                    firsts[r] = _scan_tile(s[b], c[b], csc[b], R, c0, s0R, K,
+                                           plan, e, r)
+                    scanned[b, r] += 1
+                    if firsts[r][0] != NONE:
+                        break
+        found, stot = min(firsts, key=lambda x: x[0])   # the merge
+        hit = found != NONE
+        if not hit:
+            stot = csc[b, K - 1]
+        ks = found if hit else 0
+        kb = max(ks - 1, 0) if hit else K - 1
+        deg = hit and ks == 0
+        if not deg:                   # the merge carried the winning sum
+            assert stot == csc[b, kb]
+        for e, r in itertools.product(range(plan.tiles), range(plan.cluster)):
+            lanes = tps.block_lanes(plan, K, e, r)
+            k = torch.arange(lanes.start, lanes.stop)
+            if deg:
+                v = torch.where(k == 0, _ceil_i32(R / c0), 0)
+            else:
+                v = torch.where(k <= kb,
+                                _ceil_i32(s[b, k] * R / (stot * c[b, k])), 0)
+            counts[b, k] = v.to(torch.int32)
+        k_stop[b], any_term[b] = ks, hit
+    return (counts, k_stop, any_term), scanned
+
+
+def _b2_rows(K):
+    plan = tps.pool_scan_plan(1, K)
+    stops = stop_lanes(K, plan.cluster, plan.tile)
+    s, c, req, n = scan_rows(K, stops, seed=K)
+    return s, c, req, stops, plan
+
+
+@pytest.mark.parametrize("K", [1, 3, 1023, 1025, 8193, 32768])
+def test_b2_cluster_walk_equals_plain_version_bit_for_bit(K):
+    s, c, req, stops, plan = _b2_rows(K)
+    st, ct, rt = (torch.from_numpy(x) for x in (s, c, req))
+    csc = tps._clamped_prefix_sums(st)
+    want = tps._pool_scan_torch(st, ct, csc, rt)
+    n = len(stops)
+    got, scanned = pool_walk(st, ct, csc, rt)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[1][:n].tolist() == stops and bool(got[2][:n].all())
+    assert not bool(got[2][n])
+    # scanned counts tile 0, which every block scans, and then the block's
+    # own tiles: block 0 from its second
+    own = np.array([plan.tiles] + [plan.tiles + 1] * (plan.cluster - 1))
+    # the row that never stops: every block walks all its tiles
+    assert (scanned[n] == own).all()
+    for i, k in enumerate(stops):
+        e, r = divmod(k // plan.tile, plan.cluster)
+        if k < plan.tile:            # tile 0 answers for every block
+            assert (scanned[i] == 1).all()
+        else:                        # the block holding the stop ends there,
+            assert scanned[i, r] == e + 1 + (r > 0)
+            # and a block without one walks all its tiles (top keeps
+            # falling past a zero score)
+            q = (r + 1) % plan.cluster
+            assert scanned[i, q] == own[q]
+
+
+def test_b2_first_stop_wins_over_a_later_block_s_earlier_tile():
+    """Two stops: x in block 0's fifth tile, p > x in block 1's fifth, and
+    one in block 2's second tile, which lies before both.  Each block ends
+    at its own stop; the merge must give the least."""
+    K = 40960
+    plan = tps.pool_scan_plan(1, K)
+    assert plan.tiles == 5
+    x = 4 * plan.cluster * plan.tile + 10
+    p = (4 * plan.cluster + 1) * plan.tile + 3
+    y = (plan.cluster + 2) * plan.tile + 7
+    for stops, first in (((x, p), x), ((x, p, y), y)):
+        s = torch.ones(1, K)
+        s[0, list(stops)] = 0.0
+        c, req = torch.ones(1, K), torch.tensor([2e9])
+        csc = tps._clamped_prefix_sums(s)
+        got, scanned = pool_walk(s, c, csc, req)
+        assert int(got[1][0]) == first
+        assert scanned[0, 0] == 5 and scanned[0, 1] == 6
+        for a, b in zip(got, tps._pool_scan_torch(s, c, csc, req)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [3, 1025, 8193])
+def test_b2_cluster_walk_equals_reference_scan(K):
+    s, c, req, _, _ = _b2_rows(K)
+    st, ct, rt = (torch.from_numpy(x) for x in (s, c, req))
+    csc_t = tps._clamped_prefix_sums(st)
+    got, _ = pool_walk(st, ct, csc_t, rt)
+    lax = jax.jit(jps._pool_scan_lax)
+    ties = 0
+    for b in range(s.shape[0]):
+        ref = [np.asarray(x) for x in lax(jnp.asarray(s[b]), jnp.asarray(c[b]),
+                                          jnp.float32(req[b]))]
+        row = (got[0][b].numpy(), int(got[1][b]), bool(got[2][b]))
+        if (np.array_equal(row[0], ref[0]) and row[1] == int(ref[1])
+                and row[2] == bool(ref[2])):
+            continue
+        csc_j = np.asarray(jps._clamped_prefix_sums(jnp.asarray(s[b])))
+        tie, margin, budget = tpool.prefix_sum_tie(
+            s[b], c[b], float(req[b]), csc_t[b].numpy(), csc_j,
+            [(row[1], row[2]), (int(ref[1]), bool(ref[2]))])
+        assert tie, f"row {b}: margin {margin} > budget {budget}"
+        ties += 1
+    assert ties <= 1, f"{ties} F1 ties in {s.shape[0]} rows"
+
+
+# ---------------------------------------------------------------------------
+# B3's bf16 tier
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("evict", [False, True])
+def test_b3_bf16_columns_give_their_float32_casts_bits(evict):
+    rng = np.random.default_rng(11 + evict)
+    K = 1001
+    win = rng.uniform(0.0, 50.0, (K, 12)).astype(np.float32)
+    m = tsu.moments_from_window(win)
+    cols = [torch.from_numpy(rng.uniform(-5.0, 60.0, K).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(4)]
+    cols[0][::97] = -0.0
+    got = tsu.stats_update(m, *cols, 12, evict)
+    want = tsu.stats_update(m, *(y.float() for y in cols), 12, evict)
+    for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])):
+        assert same_bits(a, b)
+        assert torch.equal(torch.signbit(a), torch.signbit(b))
+
+
+def test_b3_refuses_bf16_columns_with_a_scale():
+    K = 8
+    m = tsu.moments_from_window(np.ones((K, 4), np.float32))
+    col = torch.ones(K, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bf16"):
+        tsu.stats_update(m, col, col, col, col, 5, False,
+                         scale=torch.ones(K))
