@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, live-ingest and LM serving paths
-(DeepSeek-V2-Lite, RWKV6-7B, RecurrentGemma-2B), and qwen2-0.5b's
-full-sequence forward and training step, on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, live-ingest, K-sharded and quantized
+archive and LM serving paths (DeepSeek-V2-Lite, RWKV6-7B,
+RecurrentGemma-2B), and qwen2-0.5b's full-sequence forward and training
+step, on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -48,7 +49,27 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    against ``candidate_stats`` of the window at RTOL 1e-5 / ATOL 1e-4 and
    the window against the feed.  Prints append latency, B3's times and
    the kernels and copies the device runs a poll.
-5. LM phases, one per architecture, each through ``lm_phase``:
+5. Shard phase (``shard_phase``): the generator at K = 2^20, T = 1008
+   (T3 drawn in float32), staged as (a) a float32 archive, (b) a float32
+   archive of 4 shards on the one card, (c) an int8 and (d) a bf16
+   quantized archive, (e) an int8 archive of 4 shards; each tier's
+   ``nbytes`` printed beside the growth of ``memory_allocated``.  16 mixed
+   requests are served from (b) and (e) with the launch counters reset
+   just before and read just after (B1's phase 0, ``score_fuse_phase0``,
+   and its emit with given scalars once a shard and batch, B2 once a
+   batch) and every launch's operands captured; each captured launch is
+   then held against its plain version bit for bit and timed.  (b) must
+   equal (a) and (e) equal (c) bit for bit (all seven batch arrays, the
+   served pools, ``score_archive``'s rows); (c) and (d) must give (a)'s
+   pools except where ``core.quantized`` flags a tie (counted, with the
+   decision-margin quantiles); (c) and (e) are compared with a CPU run on
+   their statistics as in phase 3.  Serve p50 / p90 over 20 calls for (a),
+   (b), (c), (e) and a profiled (b) serve's idle share.  Then an int8
+   ``LiveIngestor(shards=4)`` ring (capacity 1008, 504 primed) absorbs 100
+   ticks: B3 once a shard and tick (400 launches), each replayed through
+   its plain version bit for bit, the final statistics held against
+   ``candidate_stats`` of each shard's window (RTOL 1e-5, ATOL 1e-4).
+6. LM phases, one per architecture, each through ``lm_phase``:
    DeepSeek-V2-Lite (27 layers, 15.7 B parameters), ``rwkv6-7b`` (32
    layers, 8.88 B) and ``recurrentgemma-2b`` (26 layers, 3.55 B) at full
    width and depth, bf16 weights from a seeded ``torch.Generator`` on the
@@ -77,7 +98,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    route's, at prefill and at a decode step.  Prints prefill and decode
    times, tokens/s, a profiled decode step, and the kernels' times and
    bounds.  Each model is freed before the next.
-6. Forward phase: ``qwen2-0.5b`` at full width and depth (24 layers,
+7. Forward phase: ``qwen2-0.5b`` at full width and depth (24 layers,
    d_model 896, 14 query heads over 2 KV heads of 64; 494 M parameters
    drawn on the card), ``Model.forward(train=False)`` with
    ``use_pallas=True`` on the first batch of ``make_pipeline(cfg, 4096,
@@ -94,7 +115,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    idle share, and B4's times, bound and
    ``scaled_dot_product_attention``'s time (timed only; the port never
    calls it).
-7. Train phase: the same model and initial parameters through
+8. Train phase: the same model and initial parameters through
    ``build_train_step`` on the reference's training route
    (``use_pallas=False``), ``TrainConfig(grad_accum=2)``, 3 steps of 8 x
    4096 tokens from ``make_pipeline``.  Loss and gradient norm finite and
@@ -103,7 +124,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    cross-entropy of the forward phase's B4 logits on the same batch.
    Prints step time, tokens/s, peak memory, the model-FLOP share and a
    profiled fourth step.
-8. Print B4's time over SDPA's, B8's over ``torch.bmm``'s and B7's over
+9. Print B4's time over SDPA's, B8's over ``torch.bmm``'s and B7's over
    ``torch.bmm(x, cat([w1, w3], -1))``'s (the two products alone, a
    yardstick, not ``library_ms``: no one call computes B7), prefill and
    decode, each pair from this run; the first versions' times of B5 and B7
@@ -155,6 +176,17 @@ TIER_BYTES = {"float32": 4, "int8": 1, "bfloat16": 2}
 # adds of 4, the update's 7 products and differences, the derivation's 21
 # (4 more decodes on the int8 tier)
 B3_FLOPS = 68
+
+# Shard phase: the same generator at K = 2^20 candidates (T3 drawn in
+# float32, 65536 rows at a time), served from float32, int8 and bf16 static
+# archives and from 4-shard float32 and int8 ones on the one card; then an
+# int8 4-shard ring, capacity 1008, 504 columns primed and 100 ticks
+K_BIG = 2 ** 20
+BIG_CHUNK = 65536
+BIG_SHARDS = 4
+BIG_SERVE_CALLS = 20     # serve() calls timed for p50 / p90 on each archive
+BIG_PRIME = 504
+BIG_TICKS = 100
 
 # LM phases: the serving paths of three architectures at their published
 # widths and depths, the same batch, prompt and decode length for each
@@ -240,12 +272,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def candidates(K: int, T: int, seed: int = 0):
-    """The seeded archive generator of ``benchmarks/latency_slo.py``."""
+def candidates(K: int, T: int, seed: int = 0, *, t3_chunk: int | None = None):
+    """The seeded archive generator of ``benchmarks/latency_slo.py``.  With
+    ``t3_chunk`` the T3 window is drawn in float32, uniform on [0, 50), a
+    ``t3_chunk``-row block from each generator seeded ``(seed, block)``, the
+    blocks in threads: half the host memory of the float64 draw, and a
+    fraction of its time at K = 2^20."""
     from repro_torch.core.types import CandidateSet
     rng = np.random.default_rng(seed)
     fams = rng.choice(["m5", "c5", "r5", "t3"], K)
-    return CandidateSet(
+    cols = dict(
         names=np.array([f"{fams[i]}.x{i}" for i in range(K)]),
         regions=rng.choice(["us-east-1", "eu-west-1", "ap-north-1"], K),
         azs=rng.choice(["a", "b", "c"], K),
@@ -253,9 +289,21 @@ def candidates(K: int, T: int, seed: int = 0):
         categories=rng.choice(["general", "compute", "memory"], K),
         vcpus=rng.choice([2, 4, 8, 16, 32, 64, 96], K).astype(np.float64),
         memory_gb=rng.choice([4, 8, 16, 64, 128, 384], K).astype(np.float64),
-        prices=rng.uniform(0.01, 5.0, K),
-        t3=rng.uniform(0.0, 50.0, (K, T)),
-    )
+        prices=rng.uniform(0.01, 5.0, K))
+    if t3_chunk is None:
+        return CandidateSet(**cols, t3=rng.uniform(0.0, 50.0, (K, T)))
+    from concurrent.futures import ThreadPoolExecutor
+    t3 = np.empty((K, T), np.float32)
+
+    def block(a: int) -> None:
+        out = t3[a:a + t3_chunk]
+        np.random.default_rng((seed, a // t3_chunk)).random(
+            out=out, dtype=np.float32)
+        out *= np.float32(50.0)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(block, range(0, K, t3_chunk)))
+    return CandidateSet(**cols, t3=t3)
 
 
 def mixed_requests(rng, n: int, *, filtered: bool = True):
@@ -376,6 +424,27 @@ def time_ms(fn, names: tuple[str, ...] | None, per_name: dict | None = None,
              f"{names}: {sorted(seen)[:8]}")
     prof_ms = total_ms if total_ms > 0 else None
     return call_ms, prof_ms
+
+
+def kernel_time(torch, kfn, pfn, knames, nbytes: int, nops: int,
+                matched: dict | None = None) -> dict:
+    """A kernel's device time a call (``time_ms``: the profiler, else CUDA
+    events; ``kernel_ms`` by kernel name, ``matched`` as there), its plain
+    version's, and its bound: the larger of ``nbytes`` at 3.35 TB/s and
+    ``nops`` at 67 TFLOP/s float32."""
+    split = {}
+    call_ms, dev_ms = time_ms(kfn, knames, split, matched)
+    plain_call_ms, plain_dev_ms = time_ms(pfn, None)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return dict(ms=dev_ms if dev_ms is not None else call_ms,
+                ms_source="profiler" if dev_ms is not None else "events",
+                call_ms=call_ms,
+                plain_ms=plain_dev_ms if plain_dev_ms is not None
+                else plain_call_ms,
+                plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=nops, kernel_ms=split)
 
 
 def score_plan_line(torch, sf, K, rows, B, args) -> dict:
@@ -558,24 +627,11 @@ def kernel_phase(torch, cands, archive):
                     ("pool_scan", lambda: ps.pool_scan(s, c, amounts, csc),
                      lambda: ps.pool_scan(s, c, amounts, csc, backend="torch"),
                      ps_bytes, ps_ops, ("pool_scan_kernel",))):
-                split = {}
-                call_ms, dev_ms = time_ms(kfn, knames, split)
-                plain_call_ms, plain_dev_ms = time_ms(pfn, None)
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = nops / FP32_OPS_PER_S * 1e3
-                timings[name] = dict(
-                    ms=dev_ms if dev_ms is not None else call_ms,
-                    ms_source="profiler" if dev_ms is not None else "events",
-                    call_ms=call_ms,
-                    plain_ms=(plain_dev_ms if plain_dev_ms is not None
-                              else plain_call_ms),
-                    plain_call_ms=plain_call_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bytes=nbytes, ops=nops, kernel_ms=split)
+                t = timings[name] = kernel_time(torch, kfn, pfn, knames,
+                                                nbytes, nops)
                 print(f"{name} device ms: " + " + ".join(
-                    f"{k} {v:.5f}" for k, v in split.items())
-                    + f" = {dev_ms if dev_ms is not None else float('nan'):.5f}")
+                    f"{k} {v:.5f}" for k, v in t["kernel_ms"].items())
+                    + f" = {t['ms']:.5f} ({t['ms_source']})")
             timings["pool_scan"]["scanned_lanes"] = int(scanned.sum())
             timings["pool_scan"]["plan"] = pool_scan_plan_line(torch, ps, B, K)
             timings["pool_scan"]["edges"] = pool_scan_edges(torch, ps)
@@ -611,6 +667,15 @@ def check_pools(cands, calls, served, label: str) -> dict:
     return dict(single_type_pools=single, single_type_over_ceil=over)
 
 
+def host_stats(archive) -> list:
+    """An archive's (area, slope, std) on the host; a sharded archive's
+    concatenated over its shards."""
+    if getattr(archive, "is_sharded", False):
+        parts = [host_stats(s) for s in archive.shards]
+        return [np.concatenate(x) for x in zip(*parts)]
+    return [x.cpu().numpy() for x in archive.score_stats()]
+
+
 def compare_with_cpu(torch, server, archive, cands, calls, served, label):
     """Serve ``calls`` again on the CPU, on an archive holding the card
     archive's statistics: score rows must be bit-identical, and pools
@@ -621,8 +686,8 @@ def compare_with_cpu(torch, server, archive, cands, calls, served, label):
     from repro_torch.kernels import pool_scan as ps
     from repro_torch.serve import BatchServer
 
-    stats_host = [x.cpu().numpy() for x in archive.score_stats()]
-    cpu_archive = convert.archive_from_numpy(cands, stats_host, device="cpu")
+    cpu_archive = convert.archive_from_numpy(cands, host_stats(archive),
+                                             device="cpu", key="cpu")
     cpu_server = BatchServer(device="cpu", bucket_sizes=BUCKETS)
     cpu_served = [cpu_server.serve(cpu_archive, reqs) for reqs in calls]
 
@@ -728,9 +793,17 @@ class SyntheticFeed:
         return self._draw(i)
 
     def window(self, n: int) -> np.ndarray:
-        """The (K, n) window of the last ``n`` ticks, oldest first."""
-        return np.stack([self.column(i)
-                         for i in range(self.ticks - n, self.ticks)], axis=1)
+        """The (K, n) window of the last ``n`` ticks, oldest first (the
+        columns drawn in threads: each has its own generator)."""
+        from concurrent.futures import ThreadPoolExecutor
+        out = np.empty((len(self.catalog), n))
+
+        def fill(j: int) -> None:
+            out[:, j] = self.column(self.ticks - n + j)
+
+        with ThreadPoolExecutor(8) as pool:
+            list(pool.map(fill, range(n)))
+        return out
 
     def to_candidate_set(self, window: int | None = None):
         from dataclasses import replace
@@ -857,25 +930,15 @@ def ingest_phase(torch, catalog, precision: str):
     plan = su.stats_update_plan(K, torch.cuda.get_device_properties(0)
                                 .multi_processor_count)
     matched = {}
-    call_ms, dev_ms = time_ms(lambda: su.stats_update(*args, **kw),
-                              ("stats_update_kernel",), matched=matched)
-    plain_call_ms, plain_dev_ms = time_ms(
-        lambda: su.stats_update(*args, **kw, backend="torch"), None)
     col_bytes = TIER_BYTES[precision] * 4 * K
-    nbytes = 4 * 7 * K + col_bytes + (4 * K if quantized else 0) + 4 * 9 * K
-    nops = (B3_FLOPS + (4 if quantized else 0)) * K
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
-    b3 = dict(ms=dev_ms if dev_ms is not None else call_ms,
-              ms_source="profiler" if dev_ms is not None else "events",
-              call_ms=call_ms,
-              plain_ms=plain_dev_ms if plain_dev_ms is not None
-              else plain_call_ms,
-              plain_call_ms=plain_call_ms, bound_ms=max(t_bytes, t_ops),
-              bound_by="bytes" if t_bytes >= t_ops else "operations",
-              bytes=nbytes, ops=nops, max_abs_err=max_err,
-              plan=dict(blocks=plan.blocks, threads=plan.threads),
-              kernels=matched)
+    b3 = kernel_time(
+        torch, lambda: su.stats_update(*args, **kw),
+        lambda: su.stats_update(*args, **kw, backend="torch"),
+        ("stats_update_kernel",),
+        4 * 7 * K + col_bytes + (4 * K if quantized else 0) + 4 * 9 * K,
+        (B3_FLOPS + (4 if quantized else 0)) * K, matched)
+    b3.update(max_abs_err=max_err, kernels=matched,
+              plan=dict(blocks=plan.blocks, threads=plan.threads))
     report = dict(
         K=K, capacity=INGEST_WINDOW, prime_columns=INGEST_PRIME,
         ticks=n_ticks, grow_ticks=INGEST_WINDOW - INGEST_PRIME,
@@ -979,6 +1042,366 @@ def profile_serve(torch, cands):
                                   "p90": float(np.percentile(latency, 90)),
                                   "max": float(np.max(latency))},
                 top=[[round(ms, 4), k] for ms, k in rows[:8]])
+
+
+ARRAYS = ("comb", "avail", "cost", "order", "counts", "k_stop", "any_term")
+
+
+class capture:
+    """Within the block, record every call of ``module.name`` (its args and
+    keyword args) in ``into`` and pass it through."""
+
+    def __init__(self, module, name: str, into: list):
+        self.module, self.name, self.into = module, name, into
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def wrapper(*args, **kw):
+            self.into.append((args, kw))
+            return self.real(*args, **kw)
+        # a wrapper that counts its launches through its own module's name
+        # now counts them on this one: hand them back on exit
+        wrapper.launches = 0
+        self.wrapper = wrapper
+        setattr(self.module, self.name, wrapper)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        if hasattr(self.real, "launches"):
+            self.real.launches += self.wrapper.launches
+
+
+def same_pools(recs_x, recs_y, label: str) -> None:
+    from repro_torch.core.quantized import pools_identical
+    for i, (a, b) in enumerate(zip(recs_x, recs_y)):
+        if not (pools_identical(a, b)
+                and same_bits(a.combined, b.combined)):
+            fail(f"{label}: pool of request {i} differs")
+
+
+def tier_parity(cands, reqs, batch, f32_arrays, f32_recs, q_arrays, q_recs,
+                f32_stats, scale, label: str) -> dict:
+    """A quantised tier's pools against the float32 tier's under the
+    contract of ``core.quantized``: each pool (the scan's, before a
+    ``max_types`` cap, and the served one where no cap applies) identical,
+    or a tie flagged by a decision margin within the score bound."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.core import quantized as qz
+    from repro_torch.core.scoring import CandidateStats
+    bounds = qz.stat_bounds(scale, cands.t3.shape[1])
+    stats = CandidateStats(*f32_stats)
+
+    def margin_of(b: int):
+        req, mask = reqs[b], batch.masks[b]
+        bound = qz.score_bound(stats, bounds, mask, req.lam, req.weight)
+        return bound, qz.pool_decision_margin(
+            f32_arrays[0][b], req.capacity_of(cands), req.amount, mask, bound)
+
+    with ThreadPoolExecutor(8) as pool:        # numpy sorts off the GIL
+        replays = list(pool.map(margin_of, range(len(reqs))))
+    margins, flagged, diverged = [], 0, 0
+    for b, (req, (bound, margin)) in enumerate(zip(reqs, replays)):
+        scan = lambda arr: (arr[3][b][arr[4][b] > 0],  # noqa: E731
+                            arr[4][b][arr[4][b] > 0])
+        same = all(np.array_equal(u, v)
+                   for u, v in zip(scan(f32_arrays), scan(q_arrays)))
+        if req.max_types is None:
+            same = same and qz.pools_identical(f32_recs[b], q_recs[b])
+        p = qz.QuantizedParity(identical=same, tie=margin <= 1.0,
+                               margin=margin, bound=bound)
+        if not p.ok:
+            fail(f"{label}: pool of {req} differs from float32 with margin "
+                 f"{margin:.3g} > 1 (bound {bound:.3g})")
+        flagged += p.tie
+        diverged += not same
+        margins.append(margin)
+    quant = lambda x: [float(v) for v in np.quantile(  # noqa: E731
+        np.asarray(x, np.float64), (0.0, 0.5, 0.9, 1.0))]
+    return dict(requests=len(reqs), ties_flagged=flagged,
+                pools_diverged=diverged,
+                margin_quantiles_0_50_90_100=quant(margins),
+                bound_quantiles_0_50_90_100=quant([b for b, _ in replays]))
+
+
+def serve_latency(server, archive, reqs) -> dict:
+    ms = []
+    for _ in range(BIG_SERVE_CALLS):
+        t0 = time.perf_counter()
+        server.serve(archive, reqs)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"n": BIG_SERVE_CALLS, "p50": float(np.percentile(ms, 50)),
+            "p90": float(np.percentile(ms, 90))}
+
+
+def hold_sharded_kernels(torch, captured, label: str) -> dict:
+    """Every B1 phase-0, B1 emit and B2 launch captured from a sharded
+    serve against its plain version on the same inputs, bit for bit; then
+    each timed on the first shard's (B2: the merge device's) inputs."""
+    from repro_torch.kernels import pool_scan as ps
+    from repro_torch.kernels import score_fuse as sf
+    err = {"phase0": 0.0, "emit": 0.0, "pool_scan": 0.0}
+    for args, kw in captured["phase0"]:
+        got = sf.score_fuse_phase0(*args, **kw)
+        want = sf.score_fuse_phase0(*args, **kw, backend="torch")
+        torch.cuda.synchronize()
+        for name, a, b in zip(("extrema", "cost_floor"), got, want):
+            if not same_bits(a, b):
+                fail(f"{label}: B1 phase 0 {name} differs from the plain "
+                     f"version")
+            err["phase0"] = max(err["phase0"], float(
+                (a - b).abs().nan_to_num(0.0).max()))
+    for args, kw in captured["emit"]:
+        if kw.get("extrema") is None or kw.get("cost_floor") is None:
+            fail(f"{label}: a shard's emit ran without given scalars")
+        got = sf.score_fuse_batch(*args, **kw)
+        want = sf.score_fuse_batch(*args, **kw, backend="torch")
+        torch.cuda.synchronize()
+        for name in ("comb", "avail", "cost"):
+            a, b = getattr(got, name), getattr(want, name)
+            if not same_bits(a, b):
+                fail(f"{label}: B1 emit {name} differs from the plain version")
+            err["emit"] = max(err["emit"], float(
+                (a - b).abs().nan_to_num(0.0).max()))
+    for args, kw in captured["pool_scan"]:
+        got = ps.pool_scan(*args, **kw)
+        want = ps.pool_scan(*args, **kw, backend="torch")
+        torch.cuda.synchronize()
+        for name, a, b in zip(("counts", "k_stop", "any_term"), got, want):
+            if not torch.equal(a, b):
+                fail(f"{label}: B2 {name} differs from the plain version")
+        err["pool_scan"] = max(err["pool_scan"],
+                               float((got[0] - want[0]).abs().max()))
+
+    # time each at this shape: the first shard's phase 0 and emit, B2
+    (args, kw), (eargs, ekw) = captured["phase0"][0], captured["emit"][0]
+    (U, Ks), B = kw["uniq_masks"].shape, kw["masks"].shape[0]
+    p0 = kernel_time(
+        torch, lambda: sf.score_fuse_phase0(*args, **kw),
+        lambda: sf.score_fuse_phase0(*args, **kw, backend="torch"),
+        ("score_reduce_kernel", "score_merge_kernel"),
+        4 * 6 * Ks + (B + U) * Ks + 4 * 2 * B + 4 * (6 * U + B),
+        6 * U * Ks + 4 * B * Ks)
+    emit = kernel_time(
+        torch, lambda: sf.score_fuse_batch(*eargs, **ekw),
+        lambda: sf.score_fuse_batch(*eargs, **ekw, backend="torch"),
+        ("score_emit_kernel",),
+        4 * 6 * Ks + 4 * 5 * B + 4 * 6 * U + 4 * 3 * B * Ks, 24 * B * Ks)
+    (pargs, pkw) = captured["pool_scan"][0]
+    out = ps.pool_scan(*pargs, **pkw)
+    K = pargs[0].shape[1]
+    scanned = int((np.where(out[2].cpu().numpy(), out[1].cpu().numpy(),
+                            K - 1) + 1).sum())
+    _, _, nbytes, nops = pool_scan_bound(B, K, scanned)
+    b2 = kernel_time(torch, lambda: ps.pool_scan(*pargs, **pkw),
+                     lambda: ps.pool_scan(*pargs, **pkw, backend="torch"),
+                     ("pool_scan_kernel",), nbytes, nops)
+    b2["scanned_lanes"] = scanned
+    for name, t in (("phase0", p0), ("emit", emit), ("pool_scan", b2)):
+        t["max_abs_err"] = err[name]
+        t["checked_launches"] = len(captured[name])
+    p0["shape"] = emit["shape"] = dict(B=B, U=U, K_shard=Ks)
+    b2["shape"] = dict(B=B, K=K)
+    return dict(phase0=p0, emit=emit, pool_scan=b2)
+
+
+def resident(torch, make):
+    """``make()`` on the card: the archive, its statistics computed, and
+    the bytes ``torch.cuda.memory_allocated`` grew by."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    arch = make()
+    for part in getattr(arch, "shards", (arch,)):
+        part.score_stats()
+    torch.cuda.synchronize()
+    return arch, torch.cuda.memory_allocated() - before
+
+
+def shard_phase(torch):
+    """K = 2^20 candidates on one card: static float32, int8 and bf16
+    archives and 4-shard float32 and int8 ones serve 16 mixed requests
+    through B1 (phase 0 alone, and the emit with given scalars, a shard
+    each) and B2; then an int8 4-shard ring absorbs ticks through B3, a
+    launch a shard and tick.  See the module docstring for the checks."""
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.core.types import RequestBatch
+    from repro_torch.kernels import pool_scan as ps
+    from repro_torch.kernels import score_fuse as sf
+    from repro_torch.serve import BatchServer, DeviceArchive
+    from repro_torch.shard import ShardedArchive
+
+    t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    cands = candidates(K_BIG, T_FULL, t3_chunk=BIG_CHUNK)
+    lap("generate")
+    dev = [DEVICE]
+    makes = {
+        "a": ("float32", lambda: DeviceArchive.stage(cands, key="big",
+                                                     device=DEVICE)),
+        "b": ("float32, 4 shards", lambda: ShardedArchive.stage(
+            cands, n_shards=BIG_SHARDS, devices=dev, key="big")),
+        "c": ("int8", lambda: DeviceArchive.stage(
+            cands, key="big", device=DEVICE, precision="int8")),
+        "d": ("bfloat16", lambda: DeviceArchive.stage(
+            cands, key="big", device=DEVICE, precision="bfloat16")),
+        "e": ("int8, 4 shards", lambda: ShardedArchive.stage(
+            cands, n_shards=BIG_SHARDS, devices=dev, key="big",
+            precision="int8"))}
+    arch, tiers = {}, {}
+    for x, (label, make) in makes.items():
+        t1 = time.perf_counter()
+        arch[x], grew = resident(torch, make)
+        tiers[x] = dict(tier=label, nbytes=arch[x].nbytes, allocated=grew,
+                        key=arch[x].key, stage_s=time.perf_counter() - t1)
+    print("shard phase, resident bytes (nbytes / memory_allocated growth): "
+          + "; ".join(f"({x}) {v['tier']} {v['nbytes']} / {v['allocated']}"
+                      for x, v in tiers.items()))
+    lap("stage")
+
+    server = BatchServer(device=DEVICE, bucket_sizes=BUCKETS)
+    eng = server.engine
+    reqs = mixed_requests(np.random.default_rng(8), B_FULL)
+    batch = RequestBatch.from_requests(cands, reqs)
+
+    # the path: B1 phase 0 and emit once a shard, B2 once a batch; counted
+    # from 0 and every launch's operands captured
+    captured = {"phase0": [], "emit": [], "pool_scan": []}
+    sf.score_fuse_phase0.launches = sf.score_fuse_batch.launches = 0
+    ps.pool_scan.launches = 0
+    with capture(sf, "score_fuse_phase0", captured["phase0"]), \
+            capture(sf, "score_fuse_batch", captured["emit"]), \
+            capture(pool_lib, "pool_scan", captured["pool_scan"]):
+        recs = {x: server.serve(arch[x], reqs) for x in ("b", "e")}
+    launches = {"score_fuse_phase0": sf.score_fuse_phase0.launches,
+                "score_fuse": sf.score_fuse_batch.launches,
+                "pool_scan": ps.pool_scan.launches}
+    want = {"score_fuse_phase0": 2 * BIG_SHARDS,
+            "score_fuse": 2 * BIG_SHARDS, "pool_scan": 2}
+    if launches != want:
+        fail(f"shard phase: launches {launches}, expected {want}")
+    recs.update({x: server.serve(arch[x], reqs) for x in ("a", "c", "d")})
+    arrays = {x: eng.batch_arrays(cands, batch, archive=arch[x])
+              for x in arch}
+    lap("serve")
+
+    # 4 shards against one archive: rows and pools bit-identical
+    for x, y in (("a", "b"), ("c", "e")):
+        tag = f"shard phase ({y}) against ({x})"
+        for name, u, v in zip(ARRAYS, arrays[x], arrays[y]):
+            if not same_bits(u, v):
+                fail(f"{tag}: {name} differs")
+        same_pools(recs[x], recs[y], tag)
+        for u, v in zip(eng.score_archive(arch[x]),
+                        eng.score_archive(arch[y])):
+            if not same_bits(u, v):
+                fail(f"{tag}: score_archive rows differ")
+    lap("bit_identity")
+
+    # quantised tiers against float32 under the tier contract
+    parity = {x: tier_parity(
+        cands, reqs, batch, arrays["a"], recs["a"], arrays[x], recs[x],
+        host_stats(arch["a"]), arch[x].scale.cpu().numpy(),
+        f"shard phase ({x})") for x in ("c", "d")}
+    arrays.clear()
+    print("shard phase quantized parity: " + json.dumps(parity))
+    lap("tier_parity")
+
+    # the card against the CPU on the card's statistics
+    cpu = {x: compare_with_cpu(torch, server, arch[x], cands, [reqs],
+                               [recs[x]], f"shard phase ({x})")
+           for x in ("c", "e")}
+    lap("cpu")
+    kernels = hold_sharded_kernels(torch, captured, "shard phase")
+    del captured
+    lap("kernels")
+
+    latency = {x: serve_latency(server, arch[x], reqs)
+               for x in ("a", "b", "c", "e")}
+    prof = profile_call(torch, lambda: server.serve(arch["b"], reqs))
+    arch.clear()
+    torch.cuda.empty_cache()
+    lap("latency")
+
+    ring = sharded_ring_phase(torch, cands)
+    if ring["launches"]["stats_update"] != BIG_SHARDS * BIG_TICKS:
+        fail(f"shard phase ring: B3 launched {ring['launches']} times, not "
+             f"once a shard and tick")
+    launches.update(ring["launches"])
+    lap("ring")
+    report = dict(
+        K=K_BIG, T=T_FULL, shards=BIG_SHARDS, requests=len(reqs),
+        tiers=tiers, launches=launches, quantized_parity=parity, cpu=cpu,
+        serve_latency_ms=latency,
+        serve_profile_b=dict(wall_ms=prof["wall_ms"],
+                             device_busy_ms=prof["device_busy_ms"],
+                             idle_share=prof["idle_share"]),
+        ring=ring, seconds=laps, phase_s=time.perf_counter() - t_start)
+    return launches, kernels, report
+
+
+def sharded_ring_phase(torch, cands) -> dict:
+    """An int8 ``LiveIngestor(shards=4)`` over the K = 2^20 catalog: prime
+    504 of a 1008 ring, absorb ``BIG_TICKS`` ticks (B3 once a shard and
+    tick, counted), every shard's every tick replayed through B3's plain
+    version (bit for bit), the final statistics against ``candidate_stats``
+    of each shard's decoded window (RTOL 1e-5, ATOL 1e-4)."""
+    from repro_torch.core import scoring
+    from repro_torch.kernels import stats_update as su
+    from repro_torch.stream import LiveIngestor
+
+    feed = SyntheticFeed(cands, seed=6, ticks=BIG_PRIME)
+    t0 = time.perf_counter()
+    ing = LiveIngestor(feed, window=INGEST_WINDOW, name="big", device=DEVICE,
+                       precision="int8", shards=BIG_SHARDS)
+    arch = ing.prime()
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    su.stats_update.launches = 0
+    append_ms, max_err = [], 0.0
+    for tick in range(1, BIG_TICKS + 1):
+        feed.run(1)
+        before = [(s._pos, s._moments, s._buf[s._pos].clone(),
+                   s.window_len == s.capacity) for s in arch.shards]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ing.poll()
+        torch.cuda.synchronize()
+        append_ms.append((time.perf_counter() - t1) * 1e3)
+        for i, (s, (slot, prev, y_old, evict)) in enumerate(
+                zip(arch.shards, before)):
+            y_new = s._buf[slot]
+            pm, pst = su.stats_update(
+                prev, y_new, y_old, s._buf[s._start], y_new, s.window_len,
+                evict, scale=s.scale, backend="torch")
+            for u, v in zip((*s._moments, *s.score_stats()), (*pm, *pst)):
+                if not same_bits(u, v):
+                    fail(f"shard phase ring: B3 differs from its plain "
+                         f"version on shard {i} at tick {tick}")
+                max_err = max(max_err, float(
+                    (u - v).abs().nan_to_num(0.0).max()))
+    launches = {"stats_update": su.stats_update.launches}
+    recompute = {"area": 0.0, "slope": 0.0, "std": 0.0}
+    for s in arch.shards:
+        for name, u, v in zip(recompute, s.score_stats(),
+                              scoring.candidate_stats(s.t3)):
+            if not torch.allclose(u, v, rtol=1e-5, atol=1e-4):
+                fail(f"shard phase ring: streamed {name} is off a recompute "
+                     f"of the window")
+            recompute[name] = max(recompute[name],
+                                  float((u - v).abs().max()))
+    return dict(capacity=INGEST_WINDOW, prime_columns=BIG_PRIME,
+                ticks=BIG_TICKS, prime_s=prime_s, launches=launches,
+                b3_max_abs_err=max_err, clipped_samples=arch.clipped_samples,
+                nbytes=arch.nbytes, recompute_max_abs_err=recompute,
+                append_ms={"p50": float(np.percentile(append_ms, 50)),
+                           "p90": float(np.percentile(append_ms, 90)),
+                           "max": float(np.max(append_ms))})
 
 
 def bf16_closeness(got, want, floor=None):
@@ -1918,6 +2341,19 @@ def main() -> None:
         if precision == "float32":
             launches["stats_update"] = ingest_launches["stats_update"]
             timings["stats_update"] = ingest["b3"]
+
+    shard_launches, shard_kernels, shard = shard_phase(torch)
+    print("shard phase: " + json.dumps(shard))
+    print(f"shard phase: {shard['phase_s']:.1f} s (budget 120 s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in shard["seconds"].items()))
+    timings["score_fuse"]["shard_phase"] = dict(
+        launches={"phase0": shard_launches["score_fuse_phase0"],
+                  "emit": shard_launches["score_fuse"]},
+        phase0=shard_kernels["phase0"], emit=shard_kernels["emit"])
+    timings["pool_scan"]["shard_phase"] = dict(
+        launches=shard_launches["pool_scan"], **shard_kernels["pool_scan"])
+    timings["stats_update"]["shard_phase"] = dict(
+        launches=shard_launches["stats_update"])
 
     for arch in LM_ARCHS:
         t0 = time.perf_counter()

@@ -1,10 +1,11 @@
 """Carry state from the reference (or any numpy source) into the port.
 
 This system's "weights" are the staged candidate archive: the catalog
-columns, the (K, T) T3 window and its memoised Eq. 3 statistics.  With
-these two helpers a test or the on-card smoke run gives both packages (or
-two devices) bit-identical statistics, so that what is compared is what
-comes after them.  :func:`params_from_jax` does the same for the LM
+columns, the (K, T) T3 window (or its stored int8 / bf16 codes and scale)
+and its memoised Eq. 3 statistics.  With these helpers a test or the
+on-card smoke run gives both packages (or two devices) bit-identical
+stored codes and statistics, and the same shard bounds, so that what is
+compared is what comes after them.  :func:`params_from_jax` does the same for the LM
 stack's parameters, and :func:`train_state_from_jax` for a whole training
 state (parameters and AdamW moments).
 """
@@ -16,7 +17,7 @@ import torch
 from ._device import resolve_device
 from .core.scoring import CandidateStats, f32
 from .core.types import CandidateSet
-from .serve.archive import DeviceArchive
+from .serve.archive import DeviceArchive, QuantizedDeviceArchive
 from .train import OptState, TrainState
 
 _FIELDS = ("names", "regions", "azs", "families", "categories", "vcpus",
@@ -55,13 +56,58 @@ def archive_from_numpy(cands: CandidateSet, stats=None, *, device=None,
     — and becomes the archive's ``score_stats()`` as float32, bit for bit.
     ``None`` leaves the statistics to be computed on first use.
     """
-    archive = DeviceArchive.stage(cands, key=key, device=device)
+    return _with_stats(DeviceArchive.stage(cands, key=key, device=device),
+                       stats)
+
+
+def _with_stats(archive, stats):
+    """Memoise ``stats`` (three (K,) arrays, or None) on a staged archive."""
     if stats is not None:
-        K = len(cands)
+        K = len(archive)
         rows = [f32(np.asarray(x), archive.device) for x in stats]
         if len(rows) != 3 or any(tuple(r.shape) != (K,) for r in rows):
             raise ValueError(f"stats must be three ({K},) arrays")
         object.__setattr__(archive, "_score_stats", CandidateStats(*rows))
+    return archive
+
+
+def quantized_archive_from_numpy(cands: CandidateSet, t3_q, scale,
+                                 precision: str, stats=None, *, device=None,
+                                 key: str | None = None
+                                 ) -> QuantizedDeviceArchive:
+    """A :class:`QuantizedDeviceArchive` holding the given stored codes.
+
+    ``t3_q`` (K, T) int8 or bf16 codes and ``scale`` (K,) float32, from the
+    reference's ``QuantizedDeviceArchive`` (``np.asarray`` of its ``t3_q``
+    and ``scale``), land on ``device`` bit for bit; ``key`` is used as it
+    is (the reference's key already carries ``#<precision>``).  ``stats``
+    as for :func:`archive_from_numpy`.
+    """
+    dev = resolve_device(device)
+    codes = _tensor_from_numpy(t3_q, dev)
+    want = {"int8": torch.int8, "bfloat16": torch.bfloat16}.get(precision)
+    if codes.dtype != want or codes.shape != (len(cands), *codes.shape[1:]):
+        raise ValueError(f"t3_q must be ({len(cands)}, T) {precision} codes, "
+                         f"got {tuple(codes.shape)} {codes.dtype}")
+    archive = QuantizedDeviceArchive(
+        key=key if key is not None else f"{cands.fingerprint()}#{precision}",
+        host=cands, t3_q=codes, scale=f32(np.asarray(scale), dev),
+        precision=precision, prices=f32(cands.prices, dev),
+        vcpus=f32(cands.vcpus, dev), memory_gb=f32(cands.memory_gb, dev))
+    return _with_stats(archive, stats)
+
+
+def sharded_archive_from_numpy(cands: CandidateSet, bounds, stats=None, *,
+                               devices=None, key: str | None = None):
+    """A float32 :class:`ShardedArchive` split at the given ``bounds`` (the
+    reference's ``ShardedArchive.bounds``), each shard memoising its rows
+    of the full-width ``stats`` (three (K,) arrays) when given."""
+    from .shard import ShardedArchive   # shard -> stream -> this module
+    archive = ShardedArchive.stage(cands, bounds=bounds, devices=devices,
+                                   key=key)
+    if stats is not None:
+        for (a, b), shard in zip(archive.bounds, archive.shards):
+            _with_stats(shard, [np.asarray(x)[a:b] for x in stats])
     return archive
 
 

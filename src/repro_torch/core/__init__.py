@@ -1,8 +1,9 @@
 """SpotVista core in PyTorch: scoring (Eq. 2-4), Algorithm 1, the engine.
 
 - scoring : availability (Eq. 3) / cost (Eq. 2) / combined (Eq. 4) scores
-- pool    : greedy heterogeneous pool formation (Algorithm 1)
+- pool    : greedy heterogeneous pool formation (Algorithm 1), ILP baseline
 - engine  : recommendation facade (§4, Fig. 3)
+- quantized : the quantized archive tier's error-bound / pool-parity contract
 """
 from .types import (  # noqa: F401
     CandidateSet, Recommendation, RequestBatch, ResourceRequest,
@@ -18,4 +19,9 @@ from .scoring import (  # noqa: F401
 )
 from .pool import (  # noqa: F401
     PoolResult, greedy_pool, greedy_pool_masked, greedy_pool_vectorized,
+    ilp_pool,
+)
+from .quantized import (  # noqa: F401
+    check_pool_parity, pool_decision_margin, pools_identical,
+    QuantizedParity, score_bound, stat_bounds,
 )

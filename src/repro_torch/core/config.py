@@ -43,10 +43,12 @@ class EngineConfig:
     cache_max_bytes : int | None
         Optional device-byte budget for the same LRU (``None`` = uncapped).
     archive_precision : str
-        Storage tier of staged T3 windows.  Rolling archives
-        (``build_ingestor``) stage all three tiers; a static
-        ``DeviceArchive`` stages ``"float32"`` only, and raises
-        ``NotImplementedError`` for ``"bfloat16"`` / ``"int8"``.
+        Storage tier of staged and rolling T3 windows: ``"float32"`` (exact
+        baseline), ``"bfloat16"`` (2x fewer window bytes) or ``"int8"`` (4x
+        fewer, a per-candidate float32 scale).  A quantised tier moves each
+        stored sample by at most half its per-candidate step;
+        ``core.quantized`` turns that into the score-drift budget and the
+        pool-parity contract.  The tier is part of every archive's cache key.
     archive_headroom : float
         int8 clip slack of the quantized tier (``>= 1.0``).
 
@@ -89,11 +91,13 @@ class EngineConfig:
 
     def build_cache(self, *, device=None):
         """An :class:`~repro_torch.serve.ArchiveCache` on this config's
-        budgets, staging misses at ``archive_precision`` on ``device``."""
+        budgets, staging misses at ``archive_precision`` /
+        ``archive_headroom`` on ``device``."""
         from ..serve.archive import ArchiveCache
         return ArchiveCache(capacity=self.cache_capacity,
                             max_bytes=self.cache_max_bytes,
-                            precision=self.archive_precision, device=device)
+                            precision=self.archive_precision,
+                            headroom=self.archive_headroom, device=device)
 
     def build_server(self, **kw):
         """A :class:`~repro_torch.serve.BatchServer` on this config.

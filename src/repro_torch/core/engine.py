@@ -83,6 +83,17 @@ def _batched_scores(t3, prices, vcpus, memory_gb, masks, use_cpus, weights,
     return comb, avail, cost
 
 
+def _pool_stage(comb, vcpus, memory_gb, masks, use_cpus, amounts, *,
+                pool_impl: str):
+    """Algorithm 1 over (B, K) score rows: each request's capacity row, then
+    the masked scan.  ``(order, counts, k_stop, any_term)``.  The K-sharded
+    pipeline (``repro_torch.shard.compute``) runs this same function on its
+    gathered rows, so both give the same bits."""
+    caps = torch.where(use_cpus[:, None], vcpus, memory_gb)          # (B, K)
+    return pool_lib.greedy_pool_masked(comb, caps, amounts, masks,
+                                       impl=pool_impl)
+
+
 def _fused_recommend_batch(t3, prices, vcpus, memory_gb, masks, use_cpus,
                            weights, lams, amounts, stats=None,
                            uniq_masks=None, uniq_inv=None, *,
@@ -94,13 +105,12 @@ def _fused_recommend_batch(t3, prices, vcpus, memory_gb, masks, use_cpus,
     ``pool_impl`` / ``score_impl`` must be resolved, not "auto".  Returns
     ``(comb, avail, cost, order, counts, k_stop, any_term)`` on the device.
     """
-    caps = torch.where(use_cpus[:, None], vcpus, memory_gb)          # (B, K)
     comb, avail, cost = _batched_scores(
         t3, prices, vcpus, memory_gb, masks, use_cpus, weights, lams,
         amounts, stats, uniq_masks, uniq_inv, score_impl=score_impl)
-    order, counts, k_stop, any_term = pool_lib.greedy_pool_masked(
-        comb, caps, amounts, masks, impl=pool_impl)
-    return comb, avail, cost, order, counts, k_stop, any_term
+    return (comb, avail, cost) + tuple(_pool_stage(
+        comb, vcpus, memory_gb, masks, use_cpus, amounts,
+        pool_impl=pool_impl))
 
 
 def _apply_max_types(idx: np.ndarray, counts: np.ndarray, comb: np.ndarray,
@@ -203,12 +213,18 @@ class RecommendationEngine:
 
         Returns ``(comb, avail, cost, order, counts, k_stop, any_term)``:
         (B, K) score rows, the (B, K) sort order and counts, (B,) scan ends.
+        A K-sharded ``archive`` (``is_sharded``) runs the per-shard
+        pipeline of :mod:`repro_torch.shard.compute` (tiled scoring).
         """
-        if archive is not None and getattr(archive, "is_sharded", False):
-            raise NotImplementedError(
-                "K-sharded archives are not ported yet (a later slice)")
         K = len(cands)
         impl = pool_lib.resolve_pool_impl(self.pool_impl, K)
+        if archive is not None and getattr(archive, "is_sharded", False):
+            from ..shard import sharded_batch_arrays
+            uniq_masks, uniq_inv = _dedup_masks(batch.masks)
+            return sharded_batch_arrays(
+                archive, batch.masks, batch.use_cpus, batch.weights,
+                batch.lams, batch.amounts, uniq_masks, uniq_inv,
+                pool_impl=impl)
         s_impl = scoring.resolve_score_impl(self.score_impl, K)
         if (s_impl == "dense" and archive is not None
                 and not getattr(archive, "dense_capable", True)):
@@ -257,10 +273,11 @@ class RecommendationEngine:
         ``solve_time_s`` in the diagnostics is the whole-batch wall time,
         stamped on every request.  ``pad_to`` pads the batch axis with inert
         rows that are computed and discarded.  ``archive`` is an optional
-        staged :class:`repro_torch.serve.DeviceArchive`, live
-        :class:`repro_torch.stream.RollingDeviceArchive` or its
-        :class:`~repro_torch.stream.ArchiveSnapshot`: the batch runs on its
-        device, reads its resident arrays and its memoised statistics.
+        staged :class:`repro_torch.serve.DeviceArchive` (or quantised
+        archive), live :class:`repro_torch.stream.RollingDeviceArchive` or
+        its :class:`~repro_torch.stream.ArchiveSnapshot`, or a K-sharded
+        archive (``repro_torch.shard``): the batch runs on its device, reads
+        its resident arrays and its memoised statistics.
         """
         requests = list(requests)
         if not requests:
@@ -318,10 +335,21 @@ class RecommendationEngine:
 
         One stats-backed fused scoring call, never touching the (K, T)
         window; returns ``(combined, availability, cost)`` float32 numpy rows.
+        A K-sharded archive goes through the per-shard pipeline: a shard
+        scored alone would normalise Eq. 3 against its own extrema, so the
+        exact cross-shard merge is what makes its rows equal the
+        single-device archive's.
         """
         if getattr(archive, "is_sharded", False):
-            raise NotImplementedError(
-                "K-sharded archives are not ported yet (a later slice)")
+            from ..shard import sharded_batch_arrays
+            mask = np.ones((1, len(archive)), bool)
+            impl = pool_lib.resolve_pool_impl(self.pool_impl, len(archive))
+            comb, avail, cost, *_ = sharded_batch_arrays(
+                archive, mask, np.array([use_cpus]),
+                np.array([weight], np.float32), np.array([lam], np.float32),
+                np.array([amount], np.float32), mask, np.zeros(1, np.int32),
+                pool_impl=impl)
+            return comb[0], avail[0], cost[0]
         dev = archive.device
         mask = torch.ones((1, len(archive)), dtype=torch.bool, device=dev)
         one = lambda x: f32([x], dev)  # noqa: E731

@@ -19,9 +19,10 @@ PyTorch counterpart of ``repro.core.pool``:
                                 ``POOL_TILED_AUTO_K`` candidates up.
 - ``greedy_pool_masked``    : the batched engine's form, over a full-width
                               candidate axis with per-request masks.
+- ``ilp_pool``              : the §6.3.1 ILP baseline (scipy's ``milp``, on
+                              the host, float64), as in the reference.
 
-Every scan runs in float32, as the reference does with x64 off.  The ILP
-baseline (``ilp_pool``) is not part of this slice.
+Every scan runs in float32, as the reference does with x64 off.
 """
 from __future__ import annotations
 
@@ -230,6 +231,59 @@ def greedy_pool_vectorized(scores, cpus, required: float, *,
         scores=scores_t.cpu().numpy()[idx],
         iterations=int(k_stop) + 1,
         solve_time_s=time.perf_counter() - t0,
+    )
+
+
+# ---------------------------------------------------------------------------
+# ILP baseline (§6.3.1): max  sum S_i * CPU_i * x_i  +  gamma * sum z_i
+#                        s.t. R <= sum CPU_i x_i <= R + slack,
+#                             z_i = 1 iff x_i > 0  (linking constraints).
+# ---------------------------------------------------------------------------
+
+def ilp_pool(scores, cpus, required: float, *, gamma: float = 1.0,
+             slack: float | None = None,
+             time_limit: float | None = None) -> PoolResult:
+    """The ILP baseline, a copy of the reference's: host numpy and scipy's
+    ``milp`` (imported here, so the port imports without scipy)."""
+    from scipy.optimize import Bounds, LinearConstraint, milp
+    from scipy.sparse import diags as sp_diags
+    from scipy.sparse import hstack as sp_hstack
+    from scipy.sparse import identity as sp_eye
+
+    t0 = time.perf_counter()
+    scores = np.asarray(scores, np.float64)
+    cpus = np.asarray(cpus, np.float64)
+    K = scores.shape[0]
+    if slack is None:
+        slack = float(cpus.max())  # tightest always-feasible over-provision bound
+    M = np.ceil((required + slack) / cpus)
+
+    # Variables: [x_0..x_{K-1}, z_0..z_{K-1}]
+    c = -np.concatenate([scores * cpus, np.full(K, gamma)])
+    constraints = [
+        # R <= sum CPU_i x_i <= R + slack
+        LinearConstraint(np.concatenate([cpus, np.zeros(K)])[None, :],
+                         required, required + slack),
+        # x_i - M_i z_i <= 0   (x>0 forces z=1)
+        LinearConstraint(sp_hstack([sp_eye(K), sp_diags(-M)]), -np.inf, 0),
+        # z_i - x_i <= 0       (z=1 requires x>=1; keeps the bonus honest)
+        LinearConstraint(sp_hstack([-sp_eye(K), sp_eye(K)]), -np.inf, 0),
+    ]
+    bounds = Bounds(np.zeros(2 * K), np.concatenate([M, np.ones(K)]))
+    options = {} if time_limit is None else {"time_limit": time_limit}
+    res = milp(c, constraints=constraints, integrality=np.ones(2 * K),
+               bounds=bounds, options=options)
+    if res.x is None:
+        raise RuntimeError(f"ILP infeasible / failed: {res.message}")
+    x = np.round(res.x[:K]).astype(np.int64)
+    idx = np.flatnonzero(x > 0)
+    idx = idx[np.argsort(-scores[idx], kind="stable")]
+    return PoolResult(
+        indices=idx,
+        counts=x[idx],
+        scores=scores[idx],
+        solve_time_s=time.perf_counter() - t0,
+        extra={"status": res.status, "objective": -float(res.fun)},
     )
 
 

@@ -28,6 +28,11 @@
 // reads G <= 2 x SMs partials of a row in one coalesced load a thread, and
 // a launch more would cost as much as the merge.
 //
+// Phase 0 alone (the K-sharded pipeline's per-shard carries, which it
+// merges across shards before any row is emitted) is the reduce kernel and
+//   score_merge_kernel   one block a row of the U extrema rows and the B
+//                        C_min rows: the same merge, written out.
+//
 // Rows are read and written 16 bytes a thread (`float4`, masks as `uchar4`)
 // when K is a multiple of 4 and every array starts on a 16-byte boundary
 // (the wrapper decides: `vec_ok`); else every lane goes one by one.
@@ -290,6 +295,25 @@ __device__ void merge_row(const float* __restrict__ pe, int u,
   __syncthreads();  // red is reused by the next merge
 }
 
+// One block a row: rows [0, U) merge extrema row u into ext (U, 6), rows
+// [U, U + B) C_min row b into cmin (B,).
+__global__ void __launch_bounds__(EMIT_THREADS) score_merge_kernel(
+    const float* __restrict__ part_ext, const float* __restrict__ part_cmin,
+    float* __restrict__ ext, float* __restrict__ cmin, int U, int G) {
+  const int row = blockIdx.x;
+  float e[7];
+  if (row < U) {
+    merge_row(part_ext, row, nullptr, 0, G, e);
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int i = 0; i < 6; ++i) ext[(size_t)row * 6 + i] = e[i];
+    }
+  } else {
+    merge_row(nullptr, 0, part_cmin, row - U, G, e);
+    if (threadIdx.x == 0) cmin[row - U] = e[6];
+  }
+}
+
 template <bool VEC>
 __global__ void __launch_bounds__(EMIT_THREADS) score_emit_kernel(
     const float* __restrict__ stats, const float* __restrict__ prices,
@@ -420,6 +444,17 @@ extern "C" int score_fuse_emit(
   kernel<<<grid, EMIT_THREADS, 0, (cudaStream_t)stream>>>(
       stats, prices, vcpus, memory_gb, use_cpus, amount, lam, weight, inv,
       ext, cmin, part_ext, part_cmin, comb, avail, cost, K, B, U, G);
+  return (int)cudaGetLastError();
+}
+
+// Merges the partials of score_fuse_reduce into ext (U, 6) and cmin (B,)
+// on a grid of U + B blocks (phase 0 without an emit).
+extern "C" int score_fuse_merge(const float* part_ext,
+                                const float* part_cmin, float* ext,
+                                float* cmin, int U, int B, int G,
+                                void* stream) {
+  score_merge_kernel<<<U + B, EMIT_THREADS, 0, (cudaStream_t)stream>>>(
+      part_ext, part_cmin, ext, cmin, U, G);
   return (int)cudaGetLastError();
 }
 

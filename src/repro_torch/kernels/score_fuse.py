@@ -13,6 +13,10 @@ of Eq. 3 are request-independent and cached per archive
 extrema depend only on ``(stats, mask)``, so they are taken once per
 *unique* filter mask (``uniq_masks`` / ``inv``, see ``core.engine.
 _dedup_masks``) and shared by the requests that carry it.
+:func:`score_fuse_phase0` does phase 0 alone: the K-sharded pipeline
+(``repro_torch.shard.compute``) takes it on every shard, merges the
+scalars across shards and hands them to :func:`score_fuse_batch` as
+``extrema`` / ``cost_floor``.
 
 Two versions, one contract:
 
@@ -24,7 +28,8 @@ Two versions, one contract:
   K-slice into scratch) and an emit (``score_emit_kernel``) that merges its
   row's partials and writes the rows 16 bytes a thread on aligned rows;
   grids from :func:`score_plan` (mirrored on the CPU in
-  ``tests/test_torch_schedules.py``).  It is built with ``--fmad=false``
+  ``tests/test_torch_schedules.py``); phase 0 alone is the reduction and
+  ``score_merge_kernel`` (one block a row).  It is built with ``--fmad=false``
   and keeps the op order of ``_emit_rows`` below, so on the same inputs
   its rows, extrema and C_min equal the plain version's bit for bit.
 
@@ -92,18 +97,28 @@ def _emit_rows(stats, total, ext, c_min, lam, weight):
     return comb, avail, cost
 
 
+def _extrema_torch(stats, uniq_masks):
+    """Phase 0's (U, 6) masked (lo, hi) pairs of area, slope, std."""
+    u = uniq_masks.bool()[:, None, :]                            # (U, 1, K)
+    lo = torch.where(u, stats, INF).amin(-1)                     # (U, 3)
+    hi = torch.where(u, stats, -INF).amax(-1)
+    return torch.stack([lo, hi], -1).reshape(-1, 6)
+
+
+def _cost_floor_torch(total, masks):
+    """Phase 0's (B,) masked C_min."""
+    return torch.where(masks.bool(), total, INF).amin(-1)
+
+
 def _score_fuse_torch(stats, prices, vcpus, memory_gb, masks, use_cpus,
                       amount, lam, weight, uniq_masks, inv, extrema,
                       cost_floor) -> FusedScores:
     total = _tile_total(prices, vcpus, memory_gb, use_cpus[:, None].bool(),
                         amount[:, None])
     if extrema is None:
-        u = uniq_masks.bool()[:, None, :]                        # (U, 1, K)
-        lo = torch.where(u, stats, INF).amin(-1)                 # (U, 3)
-        hi = torch.where(u, stats, -INF).amax(-1)
-        extrema = torch.stack([lo, hi], -1).reshape(-1, 6)
+        extrema = _extrema_torch(stats, uniq_masks)
     if cost_floor is None:
-        cost_floor = torch.where(masks.bool(), total, INF).amin(-1)
+        cost_floor = _cost_floor_torch(total, masks)
     comb, avail, cost = _emit_rows(stats, total, extrema[inv.long()],
                                    cost_floor, lam, weight)
     return FusedScores(comb, avail, cost, extrema, cost_floor)
@@ -159,7 +174,8 @@ def vec_ok(K: int, floats, bytes_) -> bool:
 
 def _library():
     return _build.library("score_fuse", {"score_fuse_reduce": (10, 7),
-                                         "score_fuse_emit": (16, 6)})
+                                         "score_fuse_emit": (16, 6),
+                                         "score_fuse_merge": (4, 3)})
 
 
 def occupancy(device) -> tuple[int, int]:
@@ -211,6 +227,20 @@ def _score_fuse_cuda(stats, prices, vcpus, memory_gb, masks, use_cpus,
     return FusedScores(comb, avail, cost, ext, cmin)
 
 
+def _expect_phase0(stats, prices, vcpus, memory_gb, masks, use_cpus,
+                   amount, uniq_masks) -> None:
+    """Check the operands both phases read (see :func:`score_fuse_batch`)."""
+    K, (B, U) = stats.shape[-1], (masks.shape[0], uniq_masks.shape[0])
+    f, byte = (torch.float32,), (torch.bool, torch.uint8)
+    for t, name, shape, dt in (
+            (stats, "stats", (3, K), f), (prices, "prices", (K,), f),
+            (vcpus, "vcpus", (K,), f), (memory_gb, "memory_gb", (K,), f),
+            (masks, "masks", (B, K), byte), (use_cpus, "use_cpus", (B,), byte),
+            (amount, "amount", (B,), f),
+            (uniq_masks, "uniq_masks", (U, K), byte)):
+        _build.expect(t, name, shape, dt, stats.device)
+
+
 def score_fuse_batch(stats, prices, vcpus, memory_gb, masks, use_cpus,
                      amount, lam, weight, uniq_masks=None, inv=None, *,
                      extrema=None, cost_floor=None,
@@ -242,19 +272,13 @@ def score_fuse_batch(stats, prices, vcpus, memory_gb, masks, use_cpus,
     if inv.shape != (B,) or inv.min() < 0 or inv.max() >= U:
         raise ValueError(f"inv must be {B} indices into {U} unique masks")
     inv = torch.as_tensor(inv, dtype=torch.int32).to(dev)
-    f, byte = (torch.float32,), (torch.bool, torch.uint8)
-    for t, name, shape, dt in (
-            (stats, "stats", (3, K), f), (prices, "prices", (K,), f),
-            (vcpus, "vcpus", (K,), f), (memory_gb, "memory_gb", (K,), f),
-            (masks, "masks", (B, K), byte), (use_cpus, "use_cpus", (B,), byte),
-            (amount, "amount", (B,), f), (lam, "lam", (B,), f),
-            (weight, "weight", (B,), f),
-            (uniq_masks, "uniq_masks", (U, K), byte)):
-        _build.expect(t, name, shape, dt, dev)
-    if extrema is not None:
-        _build.expect(extrema, "extrema", (U, 6), f, dev)
-    if cost_floor is not None:
-        _build.expect(cost_floor, "cost_floor", (B,), f, dev)
+    _expect_phase0(stats, prices, vcpus, memory_gb, masks, use_cpus, amount,
+                   uniq_masks)
+    for t, name, shape in ((lam, "lam", (B,)), (weight, "weight", (B,)),
+                           (extrema, "extrema", (U, 6)),
+                           (cost_floor, "cost_floor", (B,))):
+        if t is not None:
+            _build.expect(t, name, shape, (torch.float32,), dev)
     args = (stats, prices, vcpus, memory_gb, masks, use_cpus, amount, lam,
             weight, uniq_masks, inv, extrema, cost_floor)
     if _build.route(backend, dev) == "cuda":
@@ -266,6 +290,61 @@ def score_fuse_batch(stats, prices, vcpus, memory_gb, masks, use_cpus,
 
 #: kernel launches by :func:`score_fuse_batch` (one per call that ran it)
 score_fuse_batch.launches = 0
+
+
+def _phase0_cuda(stats, prices, vcpus, memory_gb, masks, use_cpus, amount,
+                 uniq_masks):
+    B, K = masks.shape
+    U = uniq_masks.shape[0]
+    dev = stats.device
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)  # noqa: E731
+    vec = vec_ok(K, (stats, prices, vcpus, memory_gb), (masks, uniq_masks))
+    plan = score_plan(K, U + B, _build.sm_count(dev), vec)
+    part_ext, part_cmin = new(U, 6, plan.slices), new(B, plan.slices)
+    ext, cmin = new(U, 6), new(B)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(lib.score_fuse_reduce(
+            stats.data_ptr(), prices.data_ptr(), vcpus.data_ptr(),
+            memory_gb.data_ptr(), uniq_masks.data_ptr(), masks.data_ptr(),
+            use_cpus.data_ptr(), amount.data_ptr(), part_ext.data_ptr(),
+            part_cmin.data_ptr(), K, U, B, plan.slices, plan.slice,
+            plan.row_groups, int(vec), stream), "score_fuse_reduce")
+        _build.check(lib.score_fuse_merge(
+            part_ext.data_ptr(), part_cmin.data_ptr(), ext.data_ptr(),
+            cmin.data_ptr(), U, B, plan.slices, stream), "score_fuse_merge")
+    score_fuse_phase0.launches += 1
+    return ext, cmin
+
+
+def score_fuse_phase0(stats, prices, vcpus, memory_gb, masks, use_cpus,
+                      amount, uniq_masks, *, backend: str | None = None):
+    """Phase 0 alone: ``(extrema (U, 6), cost_floor (B,))``.
+
+    The masked (lo, hi) of area, slope and std per unique filter mask and
+    the masked Eq. 2 C_min per request, over this candidate axis — what
+    :func:`score_fuse_batch` computes before it emits, and takes verbatim
+    as ``extrema=`` / ``cost_floor=``.  Operands as there.  CPU tensors
+    take the plain version, CUDA tensors the reduce kernel and
+    ``score_merge_kernel`` (or raise); min and max are exact, so both give
+    the same values (a zero's sign aside, as for :func:`score_fuse_batch`).
+    """
+    dev = stats.device
+    if min(stats.shape[-1], masks.shape[0], uniq_masks.shape[0]) < 1:
+        raise ValueError("score_fuse_phase0 needs K >= 1, B >= 1 and U >= 1")
+    _expect_phase0(stats, prices, vcpus, memory_gb, masks, use_cpus, amount,
+                   uniq_masks)
+    if _build.route(backend, dev) == "cuda":
+        return _phase0_cuda(stats, prices, vcpus, memory_gb, masks, use_cpus,
+                            amount, uniq_masks)
+    total = _tile_total(prices, vcpus, memory_gb, use_cpus[:, None].bool(),
+                        amount[:, None])
+    return _extrema_torch(stats, uniq_masks), _cost_floor_torch(total, masks)
+
+
+#: kernel launches by :func:`score_fuse_phase0` (one per call that ran it)
+score_fuse_phase0.launches = 0
 
 
 def stat_extrema(area, slope, std, mask):

@@ -3,7 +3,7 @@
 PyTorch counterpart of ``repro.models.layers``.  On one card there is no
 mesh: :func:`constrain` is the identity and :func:`tp_project_rs` the plain
 einsum, which is what the reference computes off-mesh.  Their mesh paths
-come with the sharding item (ROADMAP A.6, A.9).
+come with the mesh item (ROADMAP A.9).
 """
 from __future__ import annotations
 

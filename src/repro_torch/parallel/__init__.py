@@ -1,1 +1,2 @@
-"""Archive storage tiers (``compression``); sharding arrives with a later slice."""
+"""Archive storage tiers (``compression``); the mesh half of the reference's
+``parallel`` (``sharding``) is not ported yet (ROADMAP A.9)."""

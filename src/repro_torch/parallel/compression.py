@@ -97,7 +97,7 @@ def quantize_window(window, scale, precision: str, *,
     out = torch.empty(window.shape, dtype=_DTYPES[precision])
     for a in range(0, window.shape[0], chunk):
         b = min(a + chunk, window.shape[0])
-        blk = torch.from_numpy(window[a:b].astype(np.float32))
+        blk = torch.from_numpy(np.asarray(window[a:b], np.float32))
         if precision == "bfloat16":
             out[a:b] = blk.to(torch.bfloat16)
         else:

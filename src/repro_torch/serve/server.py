@@ -119,11 +119,14 @@ class BatchServer:
 
         ``target`` is a host :class:`~repro_torch.core.CandidateSet` (staged
         through the LRU cache, keyed by content fingerprint or
-        ``archive_key``), an already-staged :class:`DeviceArchive`, or a
-        live :class:`~repro_torch.stream.RollingDeviceArchive` or its
-        :class:`~repro_torch.stream.ArchiveSnapshot`.  Staged archives are
-        served directly, bypassing the LRU: a rolling archive re-keys
-        itself every tick, and the ingestor manages its cache membership.
+        ``archive_key``), an already-staged :class:`DeviceArchive` (or
+        quantised archive), a live
+        :class:`~repro_torch.stream.RollingDeviceArchive` or its
+        :class:`~repro_torch.stream.ArchiveSnapshot`, or a K-sharded
+        archive or snapshot (``repro_torch.shard``), which the engine
+        routes to the per-shard pipeline.  Staged archives are served
+        directly, bypassing the LRU: a rolling archive re-keys itself every
+        tick, and the ingestor manages its cache membership.
         """
         requests = list(requests)
         if not requests:
@@ -131,9 +134,6 @@ class BatchServer:
         if isinstance(target, CandidateSet):
             archive = self.cache.get(target, key=archive_key)
         elif _is_archive(target):
-            if getattr(target, "is_sharded", False):
-                raise NotImplementedError(
-                    "K-sharded archives are not ported yet (a later slice)")
             if archive_key is not None:
                 raise ValueError(
                     "archive_key only applies when serving a CandidateSet; "
@@ -142,7 +142,7 @@ class BatchServer:
         else:
             raise TypeError(
                 "serve() target must be a CandidateSet or a staged archive "
-                "(DeviceArchive / rolling / snapshot), got "
+                "(DeviceArchive / rolling / snapshot / sharded), got "
                 f"{type(target).__name__}")
         t0 = time.perf_counter()
         out: list[Recommendation] = []

@@ -47,9 +47,18 @@ class LiveIngestor:
         Storage tier of the ring and its int8 clip slack.
     device : str | torch.device, optional
         Where the ring lives: CUDA unless ``"cpu"``.
-    shards, devices, shard_bounds
-        K-sharded staging is not ported yet: any of them raises
-        ``NotImplementedError``.
+    shards : int, optional
+        When set (or when ``devices`` or ``shard_bounds`` is given),
+        :meth:`prime` stages a K-sharded rolling archive
+        (``repro_torch.shard.ShardedRollingArchive``): one ring per shard,
+        every tick split across the shards under one version bump.  The
+        rest of the loop is unchanged.
+    devices : sequence, optional
+        Devices the shards round-robin over (default: ``device`` alone).
+    shard_bounds : sequence of (start, end), optional
+        An explicit contiguous partition of the candidate axis
+        (``repro_torch.shard.check_bounds``) instead of the balanced split;
+        region-sharded serving pins one shard per region this way.
     """
 
     def __init__(self, collector, *, window: int,
@@ -61,10 +70,10 @@ class LiveIngestor:
                  shard_bounds=None, device=None):
         if window < 1:
             raise ValueError("window must be >= 1")
-        if shards is not None or devices is not None \
-                or shard_bounds is not None:
-            raise NotImplementedError(
-                "K-sharded rolling archives are not ported yet")
+        if shards is not None and shards < 1:
+            raise ValueError("shards must be >= 1")
+        if shard_bounds is not None:
+            shard_bounds = tuple((int(a), int(b)) for a, b in shard_bounds)
         if config is not None:
             if cache is not None:
                 raise TypeError("pass either cache= or config=, not both")
@@ -82,10 +91,13 @@ class LiveIngestor:
         self.headroom = headroom
         self.device = device
         self._name = name
-        self.archive: RollingDeviceArchive | None = None
+        self._shards = shards
+        self._devices = devices
+        self._shard_bounds = shard_bounds
+        self.archive = None   # RollingDeviceArchive | ShardedRollingArchive
         self._ingested = 0                    # collector ticks absorbed
 
-    def prime(self) -> RollingDeviceArchive:
+    def prime(self):
         """Cold start: stage the current window as the rolling archive.
 
         The one place the O(K*T) path runs (upload and exact moment
@@ -97,9 +109,21 @@ class LiveIngestor:
         old_key = self.archive.key if self.archive is not None else None
         cands = convert.as_candidate_set(
             self.collector.to_candidate_set(window=self.window))
-        self.archive = RollingDeviceArchive(
-            cands, capacity=self.window, name=self._name, device=self.device,
-            precision=self.precision, headroom=self.headroom)
+        if (self._shards is not None or self._devices is not None
+                or self._shard_bounds is not None):
+            from ..shard import ShardedRollingArchive
+            self.archive = ShardedRollingArchive(
+                cands, capacity=self.window, name=self._name,
+                n_shards=self._shards,
+                devices=(self._devices if self._devices is not None
+                         else [self.device]),
+                precision=self.precision, headroom=self.headroom,
+                bounds=self._shard_bounds)
+        else:
+            self.archive = RollingDeviceArchive(
+                cands, capacity=self.window, name=self._name,
+                device=self.device, precision=self.precision,
+                headroom=self.headroom)
         self._ingested = self.collector.ticks
         if self.cache is not None:
             if old_key is not None:
@@ -116,7 +140,7 @@ class LiveIngestor:
         """Collector ticks not yet absorbed into the served archive."""
         return self.collector.ticks - self._ingested
 
-    def ingest_tick(self) -> RollingDeviceArchive:
+    def ingest_tick(self):
         """Absorb exactly one pending collector tick (O(K))."""
         if self.archive is None:
             raise RuntimeError("prime() the ingestor before ingesting ticks")

@@ -306,6 +306,98 @@ def test_main_path_matches_cpu_run(cuda):
                                     csc_gpu[b], runs)[0], REQS[b]
 
 
+def _offset(x, off):
+    """A contiguous copy of ``x`` starting ``off`` elements into a fresh
+    buffer: a row that is off a 16-byte boundary when ``off % 4 != 0``."""
+    buf = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    return buf[off:].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("bounds", [((0, 334), (334, 668), (668, 1001)),
+                                    ((0, 400), (400, 1001)), ((1, 401),)])
+def test_score_fuse_phase0_and_given_scalar_emit_on_shards(cuda, bounds):
+    """B1's phase-0 entry (reduce + merge kernel) and its emit with given
+    extrema and C_min, on shard slices of K = 1001 whose offsets and
+    lengths break the 16-byte path and on ones that keep it: bit-identical
+    to the plain versions, one launch a call each."""
+    cands = _world(1001, seed=7)
+    full = DeviceArchive.stage(cands, device=cuda)
+    stats = torch.stack(tuple(full.score_stats()))
+    batch = RequestBatch.from_requests(cands, REQS)
+    uniq, inv = _dedup_masks(batch.masks)
+    on = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)  # noqa: E731
+    vecs = set()
+    for a, b in bounds:
+        args = (_offset(stats[:, a:b].contiguous(), a), full.prices[a:b],
+                full.vcpus[a:b], full.memory_gb[a:b], on(batch.masks[:, a:b]),
+                on(batch.use_cpus), on(batch.amounts), on(uniq[:, a:b]))
+        vecs.add(tsf.vec_ok(b - a, args[:4], (args[4], args[7])))
+        before = tsf.score_fuse_phase0.launches
+        ext, cmin = tsf.score_fuse_phase0(*args)
+        assert tsf.score_fuse_phase0.launches == before + 1
+        want_ext, want_cmin = tsf.score_fuse_phase0(*args, backend="torch")
+        torch.cuda.synchronize()
+        assert _same(ext, want_ext) and _same(cmin, want_cmin), (a, b)
+        emit = (*args[:7], on(batch.lams), on(batch.weights), args[7], inv)
+        got = tsf.score_fuse_batch(*emit, extrema=ext, cost_floor=cmin)
+        want = tsf.score_fuse_batch(*emit, extrema=want_ext,
+                                    cost_floor=want_cmin, backend="torch")
+        torch.cuda.synchronize()
+        for name in ("comb", "avail", "cost"):
+            assert _same(getattr(got, name), getattr(want, name)), (a, b, name)
+    # [0, 400) alone is a multiple of 4 long and starts on a boundary
+    assert vecs == ({True, False} if len(bounds) == 2 else {False})
+
+
+@pytest.mark.parametrize("n_shards,precision", [(3, "float32"), (4, "int8")])
+def test_sharded_pools_on_the_card_match_single_device(cuda, n_shards,
+                                                       precision):
+    """Sharded archives on one card (K = 1001 and 5000): score rows and
+    pools bit-identical to the single-device archive's, B1 phase 0 and its
+    emit once a shard and batch, B2 once a batch."""
+    from repro_torch.core import EngineConfig, RecommendationEngine
+    from repro_torch.shard import ShardedArchive
+    for K in (1001, 5000):
+        cands = _world(K, seed=8)
+        eng = RecommendationEngine(EngineConfig(score_impl="tiled"),
+                                   device=cuda)
+        single = DeviceArchive.stage(cands, device=cuda, precision=precision)
+        sharded = ShardedArchive.stage(cands, n_shards=n_shards,
+                                       devices=[cuda], precision=precision)
+        batch = RequestBatch.from_requests(cands, REQS, pad_to=8)
+        want = eng.batch_arrays(cands, batch, archive=single)
+        tsf.score_fuse_phase0.launches = tsf.score_fuse_batch.launches = 0
+        tps.pool_scan.launches = 0
+        got = eng.batch_arrays(cands, batch, archive=sharded)
+        assert tsf.score_fuse_phase0.launches == n_shards
+        assert tsf.score_fuse_batch.launches == n_shards
+        assert tps.pool_scan.launches == 1
+        for a, b in zip(want, got):
+            np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("precision", ["int8", "bfloat16"])
+def test_quantized_archive_on_the_card_matches_cpu(cuda, precision):
+    """A static quantised archive staged on the card: the CPU's codes and
+    scale bit for bit, statistics within RTOL 1e-5 / ATOL 1e-4 of the
+    CPU's (other summation orders), and decoded in 4096-row chunks
+    bit-equal to the whole decoded window's."""
+    from repro_torch.core import scoring
+    from repro_torch.serve.archive import decoded_stats
+    cands = _world(10000, T=200, seed=9)
+    gpu = DeviceArchive.stage(cands, device=cuda, precision=precision)
+    cpu = DeviceArchive.stage(cands, device="cpu", precision=precision)
+    assert torch.equal(gpu.t3_q.cpu(), cpu.t3_q)
+    assert torch.equal(gpu.scale.cpu(), cpu.scale)
+    for a, b in zip(gpu.score_stats(), cpu.score_stats()):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                   atol=1e-4)
+    whole = scoring.candidate_stats(gpu.t3)
+    for a, b in zip(decoded_stats(gpu.t3_q, gpu.scale, precision,
+                                  chunk=4096), whole):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 def test_stats_update_kernel_matches_plain_version(cuda, quantized):
     """B3 against its plain version on the card over a growing and a

@@ -32,7 +32,8 @@ from repro_torch.core.config import EngineConfig
 from repro_torch.core.types import RequestBatch
 from repro_torch.core.types import ResourceRequest as TReq
 from repro_torch.kernels import pool_scan as tps
-from repro_torch.serve import ArchiveCache, BatchServer, DeviceArchive
+from repro_torch.serve import (ArchiveCache, BatchServer, DeviceArchive,
+                               QuantizedDeviceArchive)
 
 from _score_helpers import ATOL, RTOL
 
@@ -210,14 +211,21 @@ def test_archives_cache_and_config():
     cache.get(port, key="other")
     cache.get(port, key="third")
     assert cache.evictions == 1 and a.key not in cache
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DeviceArchive.stage(port, device="cpu", precision="int8")
+    for precision in ("int8", "bfloat16"):
+        staged = DeviceArchive.stage(port, device="cpu", precision=precision)
+        assert isinstance(staged, QuantizedDeviceArchive)
+        assert staged.key == f"{port.fingerprint()}#{precision}"
     ing = EngineConfig(archive_precision="int8").build_ingestor(
         None, window=8, device="cpu")
     assert ing.precision == "int8" and ing.cache.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="sharded"):
-        teng.RecommendationEngine(device="cpu").score_archive(
-            type("Sharded", (), {"is_sharded": True})())
+    eng = teng.RecommendationEngine(device="cpu")
+    want = eng.score_archive(archive, lam=0.2, weight=0.7, amount=64.0)
+    got = eng.score_archive(
+        convert.sharded_archive_from_numpy(port, ((0, 7), (7, 130), (130, K)),
+                                           stats, devices=["cpu"]),
+        lam=0.2, weight=0.7, amount=64.0)
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
     with pytest.raises(ValueError, match="pool_impl"):
         EngineConfig(pool_impl="sparse")
     assert EngineConfig().build_engine(device="cpu").device.type == "cpu"

@@ -26,6 +26,7 @@ from repro_torch.launch import train as train_launcher
 from repro_torch.kernels import _build
 from repro_torch.models import get_model
 from repro_torch.serve import ArchiveCache, BatchServer, DeviceArchive
+from repro_torch.shard import ShardedArchive, ShardedRollingArchive
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -51,7 +52,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.kernels.flash_attention", "repro_torch.train",
            "repro_torch.train.optim", "repro_torch.train.step",
            "repro_torch.data", "repro_torch.data.pipeline",
-           "repro_torch.launch", "repro_torch.launch.train"]
+           "repro_torch.launch", "repro_torch.launch.train",
+           "repro_torch.core.quantized", "repro_torch.shard",
+           "repro_torch.shard.archive", "repro_torch.shard.compute"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
@@ -119,9 +122,13 @@ def _tiny_candidates() -> CandidateSet:
          ({"w": np.zeros(2, np.float32)}, {"w": np.zeros(2, np.float32)},
           None, np.int32(0)))),
     lambda: train_launcher.main(["--arch", "qwen2-0.5b", "--reduced"]),
+    lambda: DeviceArchive.stage(_tiny_candidates(), precision="int8"),
+    lambda: ShardedArchive.stage(_tiny_candidates(), n_shards=2),
+    lambda: ShardedRollingArchive(_tiny_candidates(), n_shards=2),
 ], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage",
         "model", "params", "model-rwkv6", "model-recurrentgemma",
-        "model-qwen2", "pipeline", "train-state", "launcher"])
+        "model-qwen2", "pipeline", "train-state", "launcher", "stage-int8",
+        "stage-sharded", "rolling-sharded"])
 def test_default_device_raises_without_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -40,6 +40,7 @@ from repro_torch.core import EngineConfig, RecommendationEngine, ResourceRequest
 from repro_torch.core import scoring
 from repro_torch.core.types import RequestBatch
 from repro_torch.serve import ArchiveCache, BatchServer, DeviceArchive
+from repro_torch.shard import ShardedArchive, ShardedRollingArchive
 from repro_torch.stream import (AdmissionQueue, ArchiveSnapshot, IngestPump,
                                 LiveIngestor, RollingDeviceArchive)
 from repro_torch.stream.admission import Ticket
@@ -311,9 +312,18 @@ def test_server_serves_rolling_and_snapshot_directly():
     assert len(server.cache) == 0           # bypassed the LRU
     with pytest.raises(ValueError, match="archive_key"):
         server.serve(arch, reqs, archive_key="x")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        server.serve(type("Sharded", (), {"host": cands,
-                                          "is_sharded": True})(), reqs)
+    # K-sharded operands serve the unsharded pools: a static archive and a
+    # version-pinned snapshot of a sharded ring fed the same column
+    static = DeviceArchive.stage(cands, device=CPU)
+    ring = ShardedRollingArchive(cands, n_shards=3, devices=[CPU])
+    ring.append(np.full(24, 3.0))
+    for target, want in ((ShardedArchive.stage(cands, n_shards=3,
+                                                devices=[CPU]),
+                          server.serve(static, reqs)),
+                         (ring.snapshot(), live)):
+        for a, b in zip(want, server.serve(target, reqs)):
+            _assert_same_pools(a, b)
+            np.testing.assert_array_equal(b.combined, a.combined)
     with pytest.raises(TypeError, match="staged archive"):
         server.serve(object(), reqs)
 
@@ -429,8 +439,27 @@ def test_ingestor_validation():
 @pytest.mark.parametrize("kw", [{"shards": 2}, {"devices": ["cpu"]},
                                 {"shard_bounds": [(0, 4), (4, 8)]}])
 def test_sharded_ingestion_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="sharded"):
-        LiveIngestor(_collector(cycles=1), window=4, device=CPU, **kw)
+    """(Named when these options raised.)  Each option primes a K-sharded
+    ring, and a tick through it matches the single-device ring fed the same
+    collector: window, statistics and served pools bit for bit."""
+    col = _collector(n_targets=8, cycles=WINDOW)
+    ing = LiveIngestor(col, window=4, device=CPU, name="s", **kw)
+    single = LiveIngestor(col, window=4, device=CPU, name="s")
+    arch, ring = ing.prime(), single.prime()
+    assert arch.is_sharded and isinstance(arch, ShardedRollingArchive)
+    col.run(1)
+    assert ing.poll() == 1 and single.poll() == 1
+    assert arch.key == ring.key == "s@v1"
+    np.testing.assert_array_equal(arch.materialize(), ring.materialize())
+    for name, got, want in zip(("area", "slope", "std"), zip(
+            *(s.score_stats() for s in arch.shards)), ring.score_stats()):
+        np.testing.assert_array_equal(torch.cat(got).numpy(), want.numpy(),
+                                      err_msg=name)
+    server = BatchServer(_tiled_engine(), bucket_sizes=(1, 8))
+    reqs = _requests(arch.host)
+    for a, b in zip(server.serve(ring, reqs), server.serve(arch, reqs)):
+        _assert_same_pools(a, b)
+        np.testing.assert_array_equal(b.combined, a.combined)
 
 
 def test_ingestor_catches_up_multiple_ticks():
