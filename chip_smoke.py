@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, live-ingest, K-sharded and quantized
-archive and LM serving paths (DeepSeek-V2-Lite, RWKV6-7B,
-RecurrentGemma-2B), and qwen2-0.5b's full-sequence forward and training
-step, on one NVIDIA GPU.
+archive paths, the paper's simulated-cloud pipeline (collector, ingestion,
+admission, baselines, load harness), LM serving (DeepSeek-V2-Lite,
+RWKV6-7B, RecurrentGemma-2B), and qwen2-0.5b's full-sequence forward and
+training step, on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -69,6 +70,35 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    ticks: B3 once a shard and tick (400 launches), each replayed through
    its plain version bit for bit, the final statistics held against
    ``candidate_stats`` of each shard's window (RTOL 1e-5, ATOL 1e-4).
+5b. Simulator phase (``sim_phase``): the paper's own pipeline through the
+   port's ``cloudsim``, ``core`` and ``loadgen`` at the full default
+   catalog (128 types x 50 AZs in 17 regions: K = 6400 pools, aws
+   profile, seed 0).  A rate-limited ``SPSQueryService`` of 2000 accounts
+   (50 scenarios / 24 h each) answers a USQS ``DataCollector`` whose
+   ``BudgetedProbeScheduler`` probes 640 targets a cycle (int8 host ring of
+   1008); 504 cycles (half a week; the quota window expires from cycle
+   144 on) prime a float32 ``LiveIngestor`` ring of 1008 on the card, then
+   48 more cycles each end in ``poll()`` (B3 once, every tick replayed
+   through its plain version bit for bit), and at ticks 16, 32 and 48 16
+   mixed requests go through an ``AdmissionQueue`` drain, held against a
+   CPU run on the snapshot's statistics as in phase 3.  ``entropy_bits``
+   on the card's histogram of the ring's T3 must equal the host's
+   ``empirical_entropy`` within 1e-6 bits.  One window of
+   ``benchmarks/fig18_19_recommendation.py``'s protocol on the contended
+   pools: the card's single-type picks at W = 0, 0.5, 1 against SpotVerse
+   (T = 4, 6), SpotFleet (LP, CO, PCO) and naive single-point picks, each
+   probed for a day (``probe_real_availability``), and an interruption
+   experiment on SpotVista's W = 0.5 pool with Kaplan-Meier and Cox on its
+   lifetimes (printed as simulator outcomes, not card numbers).  Then
+   ``benchmarks/latency_slo.py``'s load harness on the last snapshot
+   (buckets 1, 8, 64; max wait 50 ms; rates calibrated to 0.6 of the
+   measured capacity): Steady and MMPP2 on the filterless and 64-filter
+   distinct-mask mixes, and the mixed mix at 2x capacity with shed depth
+   128; every ledger must balance.  B1's and B2's counters are set to 0
+   before each serving segment and read after it, every launch captured
+   and held against its plain version bit for bit; the phase fails if any
+   of B1, B2, B3 never launched.  Prints the phase's seconds against its
+   120 s budget, seconds a cycle, queries and accounts holding scenarios.
 6. LM phases, one per architecture, each through ``lm_phase``:
    DeepSeek-V2-Lite (27 layers, 15.7 B parameters), ``rwkv6-7b`` (32
    layers, 8.88 B) and ``recurrentgemma-2b`` (26 layers, 3.55 B) at full
@@ -188,6 +218,35 @@ BIG_SERVE_CALLS = 20     # serve() calls timed for p50 / p90 on each archive
 BIG_PRIME = 504
 BIG_TICKS = 100
 
+# Simulator phase: the paper's pipeline over the full default catalog (128
+# types x 50 AZs in 17 regions = 6400 pools) with the quickstart's 2000
+# accounts.  A budgeted scheduler probes 640 targets a cycle (each target
+# about every 100 minutes); half a week is collected before the ring is
+# primed, then ticks are absorbed one by one.
+SIM_ACCOUNTS = 2000
+SIM_BUDGET = 640
+SIM_PRIME = 504
+SIM_TICKS = 48
+SIM_SERVE_AT = (16, 32, 48)
+SIM_REGIONS = ("us-east-1", "eu-west-1", "ap-northeast-1")
+SIM_BUDGET_S = 120.0
+# one window of benchmarks/fig18_19_recommendation.py's protocol
+SIM_NODES = 24
+SIM_HORIZON = 1440.0
+# the interruption experiment's request: 64 vCPUs a node, which the W = 0.5
+# pool covers with several types (a 96-vCPU request takes one node)
+SIM_POOL_CPUS = SIM_NODES * 64.0
+# benchmarks/latency_slo.py's load harness settings
+SLO_BUCKETS = (1, 8, 64)
+MAX_WAIT_S = 0.05
+UTILIZATION = 0.6
+OVERLOAD = 2.0
+SHED_DEPTH_BUCKETS = 2
+SLO_HORIZON_S = 4.0
+SLO_MARGIN = 3.0
+# entropy_bits on the card against empirical_entropy on the host, in bits
+ENTROPY_TOL = 1e-6
+
 # LM phases: the serving paths of three architectures at their published
 # widths and depths, the same batch, prompt and decode length for each
 LM_ARCHS = ("deepseek-v2-lite-16b", "rwkv6-7b", "recurrentgemma-2b")
@@ -306,9 +365,10 @@ def candidates(K: int, T: int, seed: int = 0, *, t3_chunk: int | None = None):
     return CandidateSet(**cols, t3=t3)
 
 
-def mixed_requests(rng, n: int, *, filtered: bool = True):
+def mixed_requests(rng, n: int, *, filtered: bool = True,
+                   regions=("us-east-1", "eu-west-1", "ap-north-1")):
     """Filterless by CPU, region- and family-filtered, by memory, one with
-    ``max_types``, one with W = 1."""
+    ``max_types``, one with W = 1; the region filters take ``regions``."""
     from repro_torch.core.types import ResourceRequest
     reqs = []
     for i in range(n):
@@ -320,7 +380,7 @@ def mixed_requests(rng, n: int, *, filtered: bool = True):
         else:
             kw["cpus"] = float(rng.choice([64, 128, 256, 512, 1000, 4096]))
         if kind in (3, 4):
-            kw["regions"] = [["us-east-1", "eu-west-1", "ap-north-1"][i % 3]]
+            kw["regions"] = [regions[i % 3]]
         if kind == 4:
             kw["families"] = ["c5", "m5"]
         if kind == 6:
@@ -649,11 +709,13 @@ def check_pools(cands, calls, served, label: str) -> dict:
     ``ceil(R / c0)`` nodes: the reference's float32 ``ceil(s0 R / (s0
     c0))`` can land one node above (F5, ROADMAP C), which the port keeps;
     a count, not a gate."""
-    row_of = {name: i for i, name in enumerate(cands.names)}
+    row_of = {k: i for i, k in enumerate(zip(cands.names, cands.regions,
+                                             cands.azs))}
     single = over = 0
     for reqs, recs in zip(calls, served):
         for req, rec in zip(reqs, recs):
-            rows = np.array([row_of[n] for n in rec.names], np.int64)
+            rows = np.array([row_of[k] for k in zip(rec.names, rec.regions,
+                                                    rec.azs)], np.int64)
             cap = req.capacity_of(cands)[rows] if rows.size else rows
             if not (rows.size and np.all(rec.counts > 0)
                     and req.filter_mask(cands)[rows].all()
@@ -1134,14 +1196,16 @@ def serve_latency(server, archive, reqs) -> dict:
             "p90": float(np.percentile(ms, 90))}
 
 
-def hold_sharded_kernels(torch, captured, label: str) -> dict:
-    """Every B1 phase-0, B1 emit and B2 launch captured from a sharded
-    serve against its plain version on the same inputs, bit for bit; then
-    each timed on the first shard's (B2: the merge device's) inputs."""
+def hold_launches(torch, captured, label: str, *,
+                  given_scalars: bool) -> dict:
+    """Every captured B1 phase-0, B1 emit and B2 launch against its plain
+    version on the same inputs, bit for bit; returns each one's max
+    |kernel - plain|.  With ``given_scalars`` every emit must have run on
+    merged extrema and cost floor (a shard's)."""
     from repro_torch.kernels import pool_scan as ps
     from repro_torch.kernels import score_fuse as sf
     err = {"phase0": 0.0, "emit": 0.0, "pool_scan": 0.0}
-    for args, kw in captured["phase0"]:
+    for args, kw in captured.get("phase0", ()):
         got = sf.score_fuse_phase0(*args, **kw)
         want = sf.score_fuse_phase0(*args, **kw, backend="torch")
         torch.cuda.synchronize()
@@ -1152,7 +1216,8 @@ def hold_sharded_kernels(torch, captured, label: str) -> dict:
             err["phase0"] = max(err["phase0"], float(
                 (a - b).abs().nan_to_num(0.0).max()))
     for args, kw in captured["emit"]:
-        if kw.get("extrema") is None or kw.get("cost_floor") is None:
+        if given_scalars and (kw.get("extrema") is None
+                              or kw.get("cost_floor") is None):
             fail(f"{label}: a shard's emit ran without given scalars")
         got = sf.score_fuse_batch(*args, **kw)
         want = sf.score_fuse_batch(*args, **kw, backend="torch")
@@ -1172,6 +1237,16 @@ def hold_sharded_kernels(torch, captured, label: str) -> dict:
                 fail(f"{label}: B2 {name} differs from the plain version")
         err["pool_scan"] = max(err["pool_scan"],
                                float((got[0] - want[0]).abs().max()))
+    return err
+
+
+def hold_sharded_kernels(torch, captured, label: str) -> dict:
+    """Every B1 phase-0, B1 emit and B2 launch captured from a sharded
+    serve against its plain version on the same inputs, bit for bit; then
+    each timed on the first shard's (B2: the merge device's) inputs."""
+    from repro_torch.kernels import pool_scan as ps
+    from repro_torch.kernels import score_fuse as sf
+    err = hold_launches(torch, captured, label, given_scalars=True)
 
     # time each at this shape: the first shard's phase 0 and emit, B2
     (args, kw), (eargs, ekw) = captured["phase0"][0], captured["emit"][0]
@@ -1402,6 +1477,449 @@ def sharded_ring_phase(torch, cands) -> dict:
                 append_ms={"p50": float(np.percentile(append_ms, 50)),
                            "p90": float(np.percentile(append_ms, 90)),
                            "max": float(np.max(append_ms))})
+
+
+def launch_segment(torch, label: str, fn):
+    """``fn()`` with B1's and B2's launch counters set to 0 just before and
+    read just after, every call captured; then each captured launch held
+    against its plain version bit for bit (those checks' own launches are
+    not counted).  Returns ``(fn's result, launches, max abs errors)``."""
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.kernels import pool_scan as ps
+    from repro_torch.kernels import score_fuse as sf
+    captured = {"emit": [], "pool_scan": []}
+    sf.score_fuse_batch.launches = ps.pool_scan.launches = 0
+    with capture(sf, "score_fuse_batch", captured["emit"]), \
+            capture(pool_lib, "pool_scan", captured["pool_scan"]):
+        out = fn()
+    launches = {"score_fuse": sf.score_fuse_batch.launches,
+                "pool_scan": ps.pool_scan.launches}
+    if launches != {"score_fuse": len(captured["emit"]),
+                    "pool_scan": len(captured["pool_scan"])}:
+        fail(f"{label}: launches {launches} against "
+             f"{len(captured['emit'])} / {len(captured['pool_scan'])} calls")
+    err = hold_launches(torch, captured, label, given_scalars=False)
+    return out, launches, {"score_fuse": err["emit"],
+                           "pool_scan": err["pool_scan"]}
+
+
+def bucket_service_s(server, archive, mix) -> dict:
+    """``benchmarks/latency_slo.py``'s calibration: the best serve wall
+    time per ladder bucket over half a second, after one warm serve."""
+    rng = np.random.default_rng(99)
+    out = {}
+    for bucket in server.bucket_sizes:
+        reqs = [mix.sample(rng) for _ in range(bucket)]
+        server.serve(archive, reqs)
+        best = float("inf")
+        deadline = time.perf_counter() + 0.5
+        while time.perf_counter() < deadline:
+            t0 = time.perf_counter()
+            server.serve(archive, reqs)
+            best = min(best, time.perf_counter() - t0)
+        out[bucket] = best
+    return out
+
+
+def stable_rate(server, svc: dict, utilization: float,
+                max_wait_s: float) -> float:
+    """``benchmarks/latency_slo.py``'s ``_stable_rate``: the arrival rate
+    that loads the server at ``utilization``, iterated to the fixed point
+    rate -> drain size it induces -> capacity at that size -> rate."""
+    big = max(server.bucket_sizes)
+    rate = utilization * big / svc[big]
+    for _ in range(48):
+        n = max(1, min(int(rate * max_wait_s) + 1, big))
+        eff_cap = n / sum(svc[b] for _, b in server.plan_chunks(n))
+        rate = 0.5 * rate + 0.5 * utilization * eff_cap
+    return rate
+
+
+def sim_world():
+    """The full default catalog (6400 pools) on the aws profile, the
+    quickstart's 2000 accounts, and a USQS collector over every pool with a
+    640-probe budget a cycle and an int8 host ring of a week."""
+    from repro_torch.cloudsim import (Catalog, CollectorConfig, DataCollector,
+                                      SpotMarket, SPSQueryService)
+    from repro_torch.core.usqs import BudgetedProbeScheduler
+    market = SpotMarket(Catalog(seed=0), seed=0, profile="aws")
+    service = SPSQueryService(market, n_accounts=SIM_ACCOUNTS)
+    targets = [(t.name, r, az) for t, r, az in market.pool_keys]
+    sched = BudgetedProbeScheduler([r for _, r, _ in targets], SIM_BUDGET)
+    col = DataCollector(service, targets, CollectorConfig(
+        ring_capacity=INGEST_WINDOW, ring_dtype="int8", scheduler=sched))
+    return market, service, col
+
+
+def sim_ingest(torch, col, add):
+    """Prime a float32 ring of a week on the card from the collector, then
+    ``SIM_TICKS`` cycles each followed by ``LiveIngestor.poll`` (B3, every
+    tick replayed through its plain version) and, at ``SIM_SERVE_AT``, 16
+    mixed requests through an ``AdmissionQueue`` drain."""
+    from repro_torch.kernels import stats_update as su
+    from repro_torch.serve import BatchServer
+    from repro_torch.stream import AdmissionQueue, LiveIngestor
+
+    t0 = time.perf_counter()
+    ing = LiveIngestor(col, window=INGEST_WINDOW, name="sim", device=DEVICE)
+    arch = ing.prime()
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    server = BatchServer(device=DEVICE, bucket_sizes=BUCKETS)
+    queue = AdmissionQueue(server, lambda: ing.archive, max_wait_s=0.0)
+    rng = np.random.default_rng(9)
+    # a first serve before the timed drains: the server's first call pays
+    # one-off costs (about 0.2 s on the card) that no drain after it does
+    add("sim phase warm serve", lambda: server.serve(
+        arch.snapshot(), mixed_requests(rng, B_FULL, regions=SIM_REGIONS)))
+    calls, served, snaps = [], [], []
+    cycle_ms, append_ms, serve_ms, b3_err = [], [], [], 0.0
+    for tick in range(1, SIM_TICKS + 1):
+        t0 = time.perf_counter()
+        col.run(1)
+        cycle_ms.append((time.perf_counter() - t0) * 1e3)
+        slot, prev = arch._pos, arch._moments
+        y_old = arch._buf[slot].clone()
+        evict = arch.window_len == arch.capacity
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ing.poll()
+        torch.cuda.synchronize()
+        append_ms.append((time.perf_counter() - t0) * 1e3)
+        y_new = arch._buf[slot]
+        pm, pst = su.stats_update(prev, y_new, y_old, arch._buf[arch._start],
+                                  y_new, arch.window_len, evict,
+                                  backend="torch")
+        for a, b in zip((*arch._moments, *arch.score_stats()), (*pm, *pst)):
+            if not same_bits(a, b):
+                fail(f"sim phase: B3 differs from its plain version at tick "
+                     f"{tick}")
+            b3_err = max(b3_err, float((a - b).abs().nan_to_num(0.0).max()))
+        if tick in SIM_SERVE_AT:
+            reqs = mixed_requests(rng, B_FULL, regions=SIM_REGIONS)
+
+            def drain():
+                t1 = time.perf_counter()
+                tickets = [queue.submit(r) for r in reqs]
+                queue.drain(force=True)
+                recs = [t.result() for t in tickets]
+                serve_ms.append((time.perf_counter() - t1) * 1e3)
+                return recs
+            recs = add(f"sim phase drain at tick {tick}", drain)
+            if any(r.diagnostics["archive_version"] != arch.version
+                   for r in recs):
+                fail("sim phase: a drain served another version")
+            calls.append(reqs)
+            served.append(recs)
+            snaps.append(arch.snapshot())
+    serve = []
+    for reqs, recs, snap in zip(calls, served, snaps):
+        label = f"sim phase v{snap.version}"
+        check_pools(snap.host, [reqs], [recs], label)
+        serve.append(dict(version=snap.version, **compare_with_cpu(
+            torch, server, snap, snap.host, [reqs], [recs], label)))
+    pct = lambda x: {"p50": float(np.percentile(x, 50)),  # noqa: E731
+                     "p90": float(np.percentile(x, 90)),
+                     "max": float(np.max(x))}
+    return ing, dict(prime_s=prime_s, ticks=SIM_TICKS, cycle_ms=pct(cycle_ms),
+                     append_ms=pct(append_ms), serve_ms=serve_ms,
+                     b3_max_abs_err=b3_err, cpu=serve)
+
+
+def sim_entropy(torch, col, arch) -> dict:
+    """``entropy_bits`` of the card's histogram of the ring's T3 (grid
+    values 0, 5, ..., 50) against ``empirical_entropy`` of the collector's
+    window on the host; the two histograms must be equal."""
+    from repro_torch.core.entropy import empirical_entropy, entropy_bits
+    bins = torch.div(arch.t3, 5.0).round().to(torch.int64).flatten()
+    counts = torch.bincount(bins, minlength=11)
+    bits = entropy_bits(counts)
+    if bits.device.type != "cuda":
+        fail("sim phase: entropy_bits left the card")
+    host = col.to_candidate_set(window=arch.window_len).t3
+    host_counts = np.bincount((host // 5).astype(np.int64).ravel(),
+                              minlength=11)
+    if not np.array_equal(counts.cpu().numpy(), host_counts):
+        fail("sim phase: the card's T3 histogram differs from the host's")
+    want = empirical_entropy(host.ravel())
+    diff = abs(float(bits) - want)
+    if diff > ENTROPY_TOL:
+        fail(f"sim phase: entropy_bits {float(bits)} against {want} "
+             f"(|diff| {diff:.3g} > {ENTROPY_TOL})")
+    return dict(bits=float(bits), host_bits=want, abs_diff=diff,
+                samples=int(host.size))
+
+
+def sim_baselines(torch, market, col, add) -> dict:
+    """One window of ``benchmarks/fig18_19_recommendation.py``'s protocol
+    on the contended pools (true capacity crossing 24 nodes over the next
+    day): SpotVista's single-type picks at W = 0, 0.5, 1 from the card's
+    engine against SpotVerse (T = 4, 6), SpotFleet (LP, CO, PCO) and naive
+    single-point (SPS, T3) picks on the instantaneous signals; each pick
+    probed for a day (``probe_real_availability``); then SpotVista's W =
+    0.5 multi-node pool under ``run_interruption_experiment`` with
+    Kaplan-Meier and Cox on its lifetimes (24 nodes a member, the
+    member's availability score the covariate)."""
+    from repro_torch.cloudsim import (probe_real_availability,
+                                      run_interruption_experiment)
+    from repro_torch.core import baselines as bl
+    from repro_torch.core import cox_ph, kaplan_meier
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.core.types import ResourceRequest
+    from repro_torch.serve import BatchServer
+
+    allc = col.to_candidate_set(window=INGEST_WINDOW)
+    t0 = market.now
+    keys = list(zip(allc.names, allc.regions, allc.azs))
+    idx = np.array([market.pool_index[k] for k in keys])
+    caps = np.stack([market.capacity(tt, idx)
+                     for tt in t0 + np.arange(0.0, SIM_HORIZON, 60.0)])
+    sel = np.flatnonzero((caps.max(0) >= SIM_NODES)
+                         & (caps.min(0) < SIM_NODES))
+    cands = allc.take(sel)
+    keys = [keys[i] for i in sel]
+    sps_now = np.array([market.sps(*k, 1, t=t0) or 1 for k in keys])
+    t3_now = np.array([market.t3_true(*k, t=t0) for k in keys])
+    if_of = {(n, r): market.interruption_free_score(n, r, t=t0)
+             for n, r in {(n, r) for n, r, _ in keys}}
+    if_now = np.array([if_of[(n, r)] for n, r, _ in keys])
+
+    server = BatchServer(device=DEVICE, bucket_sizes=BUCKETS,
+                         config=EngineConfig(score_impl="tiled",
+                                             pool_impl="tiled"))
+    weights = (0.0, 0.5, 1.0)
+    reqs = [ResourceRequest(cpus=SIM_NODES * 4.0, weight=w, max_types=1)
+            for w in weights]
+    reqs.append(ResourceRequest(cpus=SIM_POOL_CPUS, weight=0.5))
+    recs = add("sim phase baselines", lambda: server.serve(cands, reqs))
+    row_of = {k: i for i, k in enumerate(keys)}
+    picks = {f"spotvista_W{w}": row_of[(r.names[0], r.regions[0], r.azs[0])]
+             for w, r in zip(weights, recs)}
+    picks["spotverse_T4"] = bl.spotverse_select(sps_now, if_now,
+                                                cands.prices, 4).index
+    picks["spotverse_T6"] = bl.spotverse_select(sps_now, if_now,
+                                                cands.prices, 6).index
+    for name, strategy in (("spotfleet_LP", "lowest-price"),
+                           ("spotfleet_CO", "capacity-optimized"),
+                           ("spotfleet_PCO", "price-capacity-optimized")):
+        picks[name] = bl.spotfleet_select(strategy, cands.prices,
+                                          t3_now).index
+    picks["naive_sps"] = bl.naive_single_point(sps_now, cands.prices).index
+    picks["naive_t3"] = bl.naive_single_point(t3_now, cands.prices).index
+    targets = sorted({keys[i] for i in picks.values()})
+    probed = {p.target: p.real_availability for p in probe_real_availability(
+        market, targets, n_nodes=SIM_NODES, duration_min=SIM_HORIZON)}
+    outcomes = {name: dict(pick=f"{keys[i][0]}@{keys[i][2]}",
+                           availability=probed[keys[i]],
+                           hourly_cost=float(cands.prices[i] * SIM_NODES))
+                for name, i in picks.items()}
+
+    pool = recs[-1]
+    members = list(zip(pool.names, pool.regions, pool.azs))
+    life = run_interruption_experiment(
+        market, members, [float(x) for x in pool.availability],
+        n_nodes=SIM_NODES, horizon_min=SIM_HORIZON)
+    km = kaplan_meier(life.durations, life.events)
+    cox = cox_ph(life.covariates, life.durations, life.events)
+    return dict(contended_pools=int(sel.size), outcomes=outcomes,
+                pool=dict(members=len(members),
+                          counts=[int(c) for c in pool.counts]),
+                lifetimes=dict(nodes=int(life.durations.size),
+                               interrupted=int(life.events.sum()),
+                               km_median_min=km.median(),
+                               km_survival_at_horizon=km.at(SIM_HORIZON),
+                               cox_hazard_ratio=cox.hazard_ratio,
+                               cox_p_value=cox.p_value,
+                               cox_converged=cox.converged))
+
+
+class pauses:
+    """Within the block: every garbage collection's generation and pause
+    (``gc.callbacks``), and the device memory segments the caching
+    allocator newly reserved (``torch.cuda.memory_stats``)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import gc
+        self.gc, self.seen, self.t0 = gc, [], None
+
+        def record(phase, info):
+            if phase == "start":
+                self.t0 = time.perf_counter()
+            elif self.t0 is not None:
+                self.seen.append((info["generation"],
+                                  time.perf_counter() - self.t0))
+        self.record = record
+        gc.callbacks.append(record)
+        self.segments = self._segments()
+        return self
+
+    def _segments(self) -> int:
+        return int(self.torch.cuda.memory_stats().get(
+            "segment.all.allocated", 0))
+
+    def __exit__(self, *exc):
+        self.gc.callbacks.remove(self.record)
+        self.segments = self._segments() - self.segments
+
+    def summary(self) -> dict:
+        ms = [dt * 1e3 for _, dt in self.seen]
+        return dict(gc_collections=len(ms),
+                    gc_gen2=sum(g == 2 for g, _ in self.seen),
+                    gc_max_ms=max(ms, default=0.0), gc_total_ms=sum(ms),
+                    new_device_segments=self.segments)
+
+
+def sim_load(torch, snapshot, add) -> dict:
+    """``benchmarks/latency_slo.py``'s scenarios over the ingestor's last
+    snapshot on the card: Steady and MMPP2 at 0.6 of the calibrated
+    capacity on the filterless and the 64-filter distinct-mask mixes, then
+    the mixed mix at 2x capacity with ``shed_depth`` 128.  Every ledger
+    must balance and every ticket resolve once."""
+    from repro_torch.loadgen import (MMPP2, LoadHarness, Steady,
+                                     distinct_mask_mix, filterless_mix,
+                                     mixed_mix)
+    from repro_torch.serve import BatchServer
+
+    import gc
+    # the containers a full collection walks (the simulator's quota book,
+    # estimators and archives among them)
+    tracked = len(gc.get_objects())
+    server = BatchServer(device=DEVICE, bucket_sizes=SLO_BUCKETS)
+    cands = snapshot.host
+    mixes = {"filterless": filterless_mix(),
+             "distinct-mask": distinct_mask_mix(cands, n_filters=64)}
+    per_mix = add("sim phase calibration", lambda: [
+        bucket_service_s(server, snapshot, m) for m in mixes.values()])
+    svc = {b: max(s[b] for s in per_mix) for b in server.bucket_sizes}
+    cap = max(SLO_BUCKETS) / svc[max(SLO_BUCKETS)]
+    rate = stable_rate(server, svc, UTILIZATION, MAX_WAIT_S)
+    arrivals = {"steady": Steady(rate=rate),
+                "bursty": MMPP2(rate_low=0.5 * rate, rate_high=2.5 * rate,
+                                mean_low_s=SLO_HORIZON_S / 8.0,
+                                mean_high_s=SLO_HORIZON_S / 24.0)}
+    harness = LoadHarness(server, snapshot, max_wait_s=MAX_WAIT_S,
+                          adaptive=True)
+    reports, stalls, seed = [], {}, 0
+    for mix_name, mix in mixes.items():
+        harness.warmup(mix)
+        for arr_name, arr in arrivals.items():
+            seed += 1
+            name = f"{mix_name}/{arr_name}"
+            seen = pauses(torch)
+
+            def run():
+                with seen:
+                    return harness.run(mix, arr, SLO_HORIZON_S, seed=seed,
+                                       name=name)
+            reports.append(add(f"sim phase {name}", run))
+            stalls[name] = seen.summary()
+    shed_depth = SHED_DEPTH_BUCKETS * max(SLO_BUCKETS)
+    over_mix = mixed_mix(cands, n_filters=8)
+    over = LoadHarness(server, snapshot, max_wait_s=MAX_WAIT_S,
+                       adaptive=True, shed_depth=shed_depth)
+
+    seen = pauses(torch)
+
+    def overload():
+        over.warmup(over_mix)
+        warmed = over.warm_pool_cache(over_mix)
+        with seen:
+            return warmed, over.run(over_mix, Steady(rate=OVERLOAD * cap),
+                                    SLO_HORIZON_S, seed=13,
+                                    name="mixed/overload-2x")
+    warmed, rep = add("sim phase overload", overload)
+    stalls[rep.name] = seen.summary()
+    reports.append(rep)
+    out = []
+    for rep in reports:
+        shedding = rep.name.endswith("overload-2x")
+        if (rep.dropped or rep.errors
+                or rep.submitted != rep.served + rep.shed
+                or rep.latency.n != rep.served
+                or rep.shed_latency.n != rep.shed):
+            fail(f"sim phase {rep.name}: the ledger does not balance: "
+                 f"{rep.to_dict()}")
+        if shedding != (rep.shed > 0):
+            fail(f"sim phase {rep.name}: shed {rep.shed} tickets")
+        d = rep.to_dict()
+        out.append({**{k: d[k] for k in (
+            "name", "offered_rate", "submitted", "served", "shed", "errors",
+            "dropped", "drains", "latency", "shed_latency", "batch_latency")},
+                    "pauses": stalls[rep.name]})
+    slo_s = SLO_MARGIN * (MAX_WAIT_S + (shed_depth + max(SLO_BUCKETS)) / cap)
+    return dict(gc_tracked_objects=tracked, capacity_rps=cap,
+                stable_rate_rps=rate,
+                bucket_service_ms={b: s * 1e3 for b, s in svc.items()},
+                scenarios=out, memo_warmed=warmed,
+                overload_slo_ms=slo_s * 1e3,
+                overload_non_shed_p99_ms=rep.latency.quantile(0.99) * 1e3,
+                overload_within_slo=rep.latency.quantile(0.99) <= slo_s)
+
+
+def sim_phase(torch):
+    """The paper's pipeline at the full default catalog (see the module
+    docstring): collect, ingest on the card, serve through admission,
+    recommend against the baselines, run the load harness.  B3's counter is
+    set to 0 before the first poll and read after the last; B1's and B2's
+    per segment (``launch_segment``), every one of their launches held bit
+    for bit."""
+    from repro_torch.kernels import stats_update as su
+
+    t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    launches = {"score_fuse": 0, "pool_scan": 0}
+    err = {"score_fuse": 0.0, "pool_scan": 0.0}
+
+    def add(label, fn):
+        out, n, e = launch_segment(torch, label, fn)
+        for k in n:
+            launches[k] += n[k]
+            err[k] = max(err[k], e[k])
+        return out
+
+    market, service, col = sim_world()
+    lap("world")
+    col.run(SIM_PRIME)
+    lap("collect")
+    su.stats_update.launches = 0
+    ing, ingest = sim_ingest(torch, col, add)
+    launches["stats_update"] = su.stats_update.launches
+    lap("ingest")
+    # the quota book after collection, before the baselines move the clock
+    book = dict(cycles=col.ticks, queries=service.total_queries,
+                accounts_holding=service.book.accounts_holding(),
+                accounts_inspected_per_query=(service.book.inspected
+                                              / service.total_queries),
+                capacity_remaining=service.capacity_remaining())
+    if launches["stats_update"] != SIM_TICKS:
+        fail(f"sim phase: B3 launched {launches['stats_update']} times over "
+             f"{SIM_TICKS} ticks, not once per tick")
+    entropy = sim_entropy(torch, col, ing.archive)
+    lap("entropy")
+    baselines = sim_baselines(torch, market, col, add)
+    lap("baselines")
+    load = sim_load(torch, ing.archive.snapshot(), add)
+    lap("load")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"sim phase: the path never launched kernel {name}")
+    report = dict(
+        K=len(col.targets), accounts=SIM_ACCOUNTS, budget=SIM_BUDGET,
+        **book, collect_s_per_cycle=laps["collect"] / SIM_PRIME,
+        launches=launches, max_abs_err={**err, "stats_update":
+                                        ingest.pop("b3_max_abs_err")},
+        ingest=ingest, entropy=entropy, baselines=baselines, load=load,
+        seconds=laps, phase_s=time.perf_counter() - t_start)
+    return launches, report
 
 
 def bf16_closeness(got, want, floor=None):
@@ -2354,6 +2872,26 @@ def main() -> None:
         launches=shard_launches["pool_scan"], **shard_kernels["pool_scan"])
     timings["stats_update"]["shard_phase"] = dict(
         launches=shard_launches["stats_update"])
+
+    sim_launches, sim = sim_phase(torch)
+    print("sim phase: " + json.dumps(sim))
+    print(f"sim phase: {sim['phase_s']:.1f} s (budget {SIM_BUDGET_S:.0f} s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in sim["seconds"].items())
+          + f"; {sim['collect_s_per_cycle']:.4f} s a cycle, "
+          f"{sim['queries']} queries, {sim['accounts_holding']} of "
+          f"{sim['accounts']} accounts holding scenarios")
+    print("sim phase, simulator outcomes (not card numbers), availability % "
+          "and $/h for 24 nodes: " + "; ".join(
+              f"{k} {v['availability']:.1f} / {v['hourly_cost']:.3f}"
+              for k, v in sim["baselines"]["outcomes"].items()))
+    print("sim phase load harness on the card (ms): " + "; ".join(
+        f"{s['name']} p50 {s['latency']['p50_ms']:.2f} p99 "
+        f"{s['latency']['p99_ms']:.2f} p99.9 {s['latency']['p999_ms']:.2f}, "
+        f"served {s['served']} shed {s['shed']} failed {s['errors']}"
+        for s in sim["load"]["scenarios"]))
+    for name, n in sim_launches.items():
+        timings[name]["sim_phase"] = dict(
+            launches=n, max_abs_err=sim["max_abs_err"][name])
 
     for arch in LM_ARCHS:
         t0 = time.perf_counter()

@@ -20,9 +20,14 @@ The reduced qwen2-0.5b (head_dim 64, which B4 takes) is held against the
 port's CPU run: its forward's logits within 5e-2 * max|CPU logits|, as
 for the other reduced models; a training step's loss and gradient norm
 within 1e-3 relative and every master-weight leaf within 2e-2 of the CPU
-tree's norm, as the CPU run is held against the reference.
+tree's norm, as the CPU run is held against the reference.  The port's
+simulator world, ingested on the card and served through admission, is
+held against its CPU run as the main path is (F1 ties only), and the load
+harness must shed at twice the card's measured capacity with every ledger
+balanced.
 """
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -31,6 +36,9 @@ from _bf16_helpers import assert_within_ulp
 from _scan_rows import scan_rows, stop_lanes
 
 from repro_torch import convert
+from repro_torch.cloudsim import (Catalog, CollectorConfig, DataCollector,
+                                  SpotMarket, SPSQueryService)
+from repro_torch.core import EngineConfig
 from repro_torch.core import pool as tpool
 from repro_torch.core.engine import _dedup_masks
 from repro_torch.core.types import CandidateSet, RequestBatch, ResourceRequest
@@ -43,8 +51,9 @@ from repro_torch.kernels import rglru_scan as trg
 from repro_torch.kernels import rwkv6_scan as twkv
 from repro_torch.kernels import stats_update as tsu
 from repro_torch.parallel import compression as tcomp
+from repro_torch.loadgen import LoadHarness, Steady, mixed_mix
 from repro_torch.serve import BatchServer, DeviceArchive
-from repro_torch.stream import RollingDeviceArchive
+from repro_torch.stream import AdmissionQueue, LiveIngestor, RollingDeviceArchive
 
 pytestmark = pytest.mark.cuda
 
@@ -278,14 +287,22 @@ def test_main_path_matches_cpu_run(cuda):
     cands = _world(6000, seed=3)
     server = BatchServer(device=cuda, bucket_sizes=(1, 8))
     archive = server.cache.get(cands)
-    stats = [x.cpu().numpy() for x in archive.score_stats()]
-    cpu_archive = convert.archive_from_numpy(cands, stats, device="cpu")
-    cpu_server = BatchServer(device="cpu", bucket_sizes=(1, 8))
     tsf.score_fuse_batch.launches = tps.pool_scan.launches = 0
     got = server.serve(archive, REQS)
     assert tsf.score_fuse_batch.launches > 0 and tps.pool_scan.launches > 0
-    want = cpu_server.serve(cpu_archive, REQS)
-    batch = RequestBatch.from_requests(cands, REQS)
+    _hold_against_cpu(cuda, server, archive, cands, REQS, got)
+
+
+def _hold_against_cpu(cuda, server, archive, cands, reqs, got):
+    """``got`` (served on the card) against the same requests on the CPU on
+    the card's statistics: score rows bit-identical, pools identical unless
+    ``prefix_sum_tie`` flags an F1 tie."""
+    stats = [x.cpu().numpy() for x in archive.score_stats()]
+    cpu_archive = convert.archive_from_numpy(cands, stats, device="cpu")
+    cpu_server = BatchServer(config=server.config, device="cpu",
+                             bucket_sizes=server.bucket_sizes)
+    want = cpu_server.serve(cpu_archive, reqs)
+    batch = RequestBatch.from_requests(cands, reqs)
     gpu = server.engine.batch_arrays(cands, batch, archive=archive)
     cpu = cpu_server.engine.batch_arrays(cands, batch, archive=cpu_archive)
     for a, b in zip(gpu[:3], cpu[:3]):
@@ -297,13 +314,75 @@ def test_main_path_matches_cpu_run(cuda):
     csc_cpu = tps._clamped_prefix_sums(s).numpy()
     csc_gpu = tps._clamped_prefix_sums(s.to(cuda)).cpu().numpy()
     for b, (x, y) in enumerate(zip(got, want)):
-        if (list(x.names) == list(y.names)
+        if (list(zip(x.names, x.regions, x.azs))
+                == list(zip(y.names, y.regions, y.azs))
                 and np.array_equal(x.counts, y.counts)):
             continue
         runs = [(int(r[5][b]), bool(r[6][b])) for r in (gpu, cpu)]
         assert tpool.prefix_sum_tie(s[b].numpy(), c[b].numpy(),
                                     float(batch.amounts[b]), csc_cpu[b],
-                                    csc_gpu[b], runs)[0], REQS[b]
+                                    csc_gpu[b], runs)[0], reqs[b]
+
+
+def test_simulated_world_on_the_card_matches_cpu(cuda):
+    """``tests/test_system.py``'s world through the port's simulator (every
+    pool of its 2 regions, 800 accounts, USQS), ingested on the card and
+    served through admission drains: pools equal the CPU run's on the
+    card's statistics (F1 ties only), B1, B2 and B3 launched."""
+    market = SpotMarket(Catalog(seed=11, n_regions=2), seed=11)
+    targets = [(t.name, r, az) for t, r, az in market.pool_keys]
+    col = DataCollector(SPSQueryService(market, n_accounts=800), targets,
+                        CollectorConfig(ring_capacity=48, ring_dtype="int8"))
+    col.run(24)
+    config = EngineConfig(score_impl="tiled", pool_impl="tiled")
+    ing = LiveIngestor(col, window=48, name="sim", device=cuda)
+    arch = ing.prime()
+    server = BatchServer(config=config, device=cuda, bucket_sizes=(1, 8))
+    queue = AdmissionQueue(server, lambda: ing.archive, max_wait_s=0.0)
+    tsf.score_fuse_batch.launches = tps.pool_scan.launches = 0
+    tsu.stats_update.launches = 0
+    for _ in range(6):
+        col.run(1)
+        assert ing.poll() == 1
+    tickets = [queue.submit(r) for r in REQS]
+    queue.drain(force=True)
+    got = [t.result() for t in tickets]
+    assert tsu.stats_update.launches == 6
+    assert tsf.score_fuse_batch.launches > 0 and tps.pool_scan.launches > 0
+    snap = arch.snapshot()
+    assert all(r.diagnostics["archive_version"] == snap.version for r in got)
+    _hold_against_cpu(cuda, server, snap, snap.host, REQS, got)
+
+
+def test_load_harness_sheds_at_twice_capacity_on_the_card(cuda):
+    """The load harness at 2x the card's measured capacity with
+    ``shed_depth``: it sheds from a warmed pool cache, every ledger
+    balances, every ticket resolves once."""
+    cands = _world(6000, seed=4)
+    server = BatchServer(device=cuda, bucket_sizes=(1, 4, 16))
+    archive = DeviceArchive.stage(cands, device=cuda)
+    mix = mixed_mix(cands, n_filters=4)
+    reqs = [mix.sample(np.random.default_rng(1)) for _ in range(16)]
+    server.serve(archive, reqs)
+    best = min(_timed(lambda: server.serve(archive, reqs)) for _ in range(20))
+    harness = LoadHarness(server, archive, max_wait_s=0.01, adaptive=True,
+                          shed_depth=32)
+    harness.warmup(mix)
+    assert harness.warm_pool_cache(mix, n_samples=256) > 0
+    tsf.score_fuse_batch.launches = tps.pool_scan.launches = 0
+    rep = harness.run(mix, Steady(rate=2.0 * 16 / best), horizon_s=1.0,
+                      seed=3)
+    assert tsf.score_fuse_batch.launches > 0 and tps.pool_scan.launches > 0
+    assert rep.shed > 0
+    assert rep.submitted == rep.served + rep.shed
+    assert rep.dropped == 0 and rep.errors == 0
+    assert rep.latency.n == rep.served and rep.shed_latency.n == rep.shed
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
 
 
 def _offset(x, off):

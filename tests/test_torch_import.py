@@ -54,7 +54,16 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.data", "repro_torch.data.pipeline",
            "repro_torch.launch", "repro_torch.launch.train",
            "repro_torch.core.quantized", "repro_torch.shard",
-           "repro_torch.shard.archive", "repro_torch.shard.compute"]
+           "repro_torch.shard.archive", "repro_torch.shard.compute",
+           "repro_torch.core.tstp", "repro_torch.core.usqs",
+           "repro_torch.core.entropy", "repro_torch.core.survival",
+           "repro_torch.core.mstl", "repro_torch.core.baselines",
+           "repro_torch.configs.spotvista", "repro_torch.cloudsim",
+           "repro_torch.cloudsim.catalog", "repro_torch.cloudsim.market",
+           "repro_torch.cloudsim.sps", "repro_torch.cloudsim.probes",
+           "repro_torch.cloudsim.collector", "repro_torch.loadgen",
+           "repro_torch.loadgen.arrivals", "repro_torch.loadgen.workload",
+           "repro_torch.loadgen.harness"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
