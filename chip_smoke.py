@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, live-ingest, K-sharded and quantized
 archive paths, the paper's simulated-cloud pipeline (collector, ingestion,
-admission, baselines, load harness), LM serving (DeepSeek-V2-Lite,
+admission, baselines, load harness), the closed-loop operator and the
+region-sharded multi-vendor world, LM serving (DeepSeek-V2-Lite,
 RWKV6-7B, RecurrentGemma-2B), and qwen2-0.5b's full-sequence forward and
 training step, on one NVIDIA GPU.
 
@@ -99,6 +100,38 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    and held against its plain version bit for bit; the phase fails if any
    of B1, B2, B3 never launched.  Prints the phase's seconds against its
    120 s budget, seconds a cycle, queries and accounts holding scenarios.
+5c. Operator phase (``operator_phase``): the closed loop of
+   ``repro_torch.operator`` and the region-sharded world of
+   ``repro_torch.multicloud`` on the card.  (c1) ``ChaosReplay`` on the sim
+   phase's market and collector (K = 6400, no second collection: a
+   float32 ring of 1008 primed with the 552 columns collected), requests
+   48 vCPUs at W 0.5, 24 at W 0.8, 96 GiB at W 0.3 and 1536 vCPUs at W 0.5
+   (24 nodes of 64): a no-fault control of 18 cycles, then a fresh replay
+   of 36 cycles with reclaims at cycles 9, 18, 27 (8, 12, 6 nodes), a
+   failing drain at 12, collector outages at 9, 10, 24 and a delayed tick
+   at 18; ``benchmarks/operator_replay.py``'s gates (0 stranded tickets,
+   the worker alive, 0 unresolved pools; the control's delivered within
+   0.05 of recommended; the faulty run interrupted, reacting, stale, and
+   failing exactly its failed drains' tickets).  (c2) ``ScenarioEngine``
+   over the three vendors' full registries (38 regions, K = 10,920, 1092
+   probes a cycle, int8 host ring of 1008), 288 cycles collected (two
+   days: the one cut in depth); a region-sharded and a single ring primed
+   on the card, 3 cycles each ending in ``poll()`` on both and 16 mixed
+   requests served from both (pools and rows bit-identical between the
+   rings, and against a CPU run); then ``replay_spotvista``'s loop on the
+   federation: ``ChaosReplay`` with ``shard_bounds=region_bounds``, 24
+   cycles, 1536 and 96 vCPUs at W 0.5, ``default_reclaims(24)``, the same
+   gates.  Every serve of every replay is recorded with a snapshot of its
+   archive and held against the CPU on its statistics as in phase 3 (F1
+   ties counted), every ``score_archive`` row against the CPU's (RTOL
+   1e-5, ATOL 1e-4); each replay and each parity request batch is one
+   ``launch_segment`` (B1's phase 0 counted on the sharded ones: a phase 0
+   and an emit a region shard), every B3 tick's inputs cloned at the call
+   and replayed through the plain version; the phase fails if B1, B2 or B3
+   never launched.  Prints ``reconcile_once`` p50 / p90 on the host clock,
+   re-recommendations, plans, launches, retirements, delivered and
+   recommended availability (simulator outcomes), and its seconds against
+   its 120 s budget.
 6. LM phases, one per architecture, each through ``lm_phase``:
    DeepSeek-V2-Lite (27 layers, 15.7 B parameters), ``rwkv6-7b`` (32
    layers, 8.88 B) and ``recurrentgemma-2b`` (26 layers, 3.55 B) at full
@@ -246,6 +279,30 @@ SLO_HORIZON_S = 4.0
 SLO_MARGIN = 3.0
 # entropy_bits on the card against empirical_entropy on the host, in bits
 ENTROPY_TOL = 1e-6
+# Operator phase: the closed loop (repro_torch.operator) on the sim phase's
+# world, then the three-vendor world (repro_torch.multicloud) at full
+# catalog width, sharded by region.  The schedules are
+# benchmarks/operator_replay.py's menu at this length; its gates apply.
+OP_BUDGET_S = 120.0
+OP_PERIOD_MIN = 10.0
+OP_CONTROL_CYCLES = 18
+OP_FAULT_CYCLES = 36
+OP_FAULTS = dict(reclaims={9: 8, 18: 12, 27: 6},
+                 failing_drains=frozenset({12}),
+                 collector_outages=frozenset({9, 10, 24}),
+                 delayed_ticks=frozenset({18}))
+# operator_replay.py: without faults, delivered >= recommended - this
+NOFAULT_TOLERANCE = 0.05
+# the three vendors' full registries: 38 regions, K = 10,920 pools; a tenth
+# of the targets probed a cycle, as in the sim phase
+MC_BUDGET = 1092
+MC_WARMUP = 288              # two days primed of a ring of a week: the one cut
+MC_PARITY_TICKS = 3
+MC_CYCLES = 24
+MC_REGIONS = ("us-east-1", "eu-west-1", "us-central1")   # aws rows take c5/m5
+MC_REQUESTS = ((SIM_POOL_CPUS, 0.5), (96.0, 0.5))
+# score_archive's availability rows against the CPU's (tests/_score_helpers)
+ROW_RTOL, ROW_ATOL = 1e-5, 1e-4
 
 # LM phases: the serving paths of three architectures at their published
 # widths and depths, the same batch, prompt and decode length for each
@@ -1111,16 +1168,21 @@ ARRAYS = ("comb", "avail", "cost", "order", "counts", "k_stop", "any_term")
 
 class capture:
     """Within the block, record every call of ``module.name`` (its args and
-    keyword args) in ``into`` and pass it through."""
+    keyword args) in ``into`` and pass it through; calls may come from any
+    thread (the admission worker's drains), so ``into`` grows under a
+    lock."""
 
     def __init__(self, module, name: str, into: list):
+        import threading
         self.module, self.name, self.into = module, name, into
+        self.lock = threading.Lock()
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
 
         def wrapper(*args, **kw):
-            self.into.append((args, kw))
+            with self.lock:
+                self.into.append((args, kw))
             return self.real(*args, **kw)
         # a wrapper that counts its launches through its own module's name
         # now counts them on this one: hand them back on exit
@@ -1479,28 +1541,40 @@ def sharded_ring_phase(torch, cands) -> dict:
                            "max": float(np.max(append_ms))})
 
 
-def launch_segment(torch, label: str, fn):
+def launch_segment(torch, label: str, fn, *, sharded: bool = False):
     """``fn()`` with B1's and B2's launch counters set to 0 just before and
     read just after, every call captured; then each captured launch held
     against its plain version bit for bit (those checks' own launches are
-    not counted).  Returns ``(fn's result, launches, max abs errors)``."""
+    not counted).  ``sharded``: B1's phase-0 entry is counted and captured
+    too, and every emit must have run on given (merged) scalars.  Returns
+    ``(fn's result, launches, max abs errors)``."""
+    from contextlib import nullcontext
+
     from repro_torch.core import pool as pool_lib
     from repro_torch.kernels import pool_scan as ps
     from repro_torch.kernels import score_fuse as sf
-    captured = {"emit": [], "pool_scan": []}
+    captured = {"emit": [], "pool_scan": [], "phase0": []}
     sf.score_fuse_batch.launches = ps.pool_scan.launches = 0
+    sf.score_fuse_phase0.launches = 0
     with capture(sf, "score_fuse_batch", captured["emit"]), \
-            capture(pool_lib, "pool_scan", captured["pool_scan"]):
+            capture(pool_lib, "pool_scan", captured["pool_scan"]), \
+            (capture(sf, "score_fuse_phase0", captured["phase0"])
+             if sharded else nullcontext()):
         out = fn()
     launches = {"score_fuse": sf.score_fuse_batch.launches,
                 "pool_scan": ps.pool_scan.launches}
-    if launches != {"score_fuse": len(captured["emit"]),
-                    "pool_scan": len(captured["pool_scan"])}:
-        fail(f"{label}: launches {launches} against "
-             f"{len(captured['emit'])} / {len(captured['pool_scan'])} calls")
-    err = hold_launches(torch, captured, label, given_scalars=False)
-    return out, launches, {"score_fuse": err["emit"],
-                           "pool_scan": err["pool_scan"]}
+    calls = {"score_fuse": len(captured["emit"]),
+             "pool_scan": len(captured["pool_scan"])}
+    if sharded:
+        launches["score_fuse_phase0"] = sf.score_fuse_phase0.launches
+        calls["score_fuse_phase0"] = len(captured["phase0"])
+    if launches != calls:
+        fail(f"{label}: launches {launches} against calls {calls}")
+    err = hold_launches(torch, captured, label, given_scalars=sharded)
+    errs = {"score_fuse": err["emit"], "pool_scan": err["pool_scan"]}
+    if sharded:
+        errs["score_fuse_phase0"] = err["phase0"]
+    return out, launches, errs
 
 
 def bucket_service_s(server, archive, mix) -> dict:
@@ -1865,7 +1939,9 @@ def sim_phase(torch):
     recommend against the baselines, run the load harness.  B3's counter is
     set to 0 before the first poll and read after the last; B1's and B2's
     per segment (``launch_segment``), every one of their launches held bit
-    for bit."""
+    for bit.  Returns the counters, the report and the world (the market
+    and the collector after their cycles), which the operator phase goes
+    on with."""
     from repro_torch.kernels import stats_update as su
 
     t_start = time.perf_counter()
@@ -1919,6 +1995,395 @@ def sim_phase(torch):
                                         ingest.pop("b3_max_abs_err")},
         ingest=ingest, entropy=entropy, baselines=baselines, load=load,
         seconds=laps, phase_s=time.perf_counter() - t_start)
+    return launches, report, (market, col)
+
+
+class held_ticks:
+    """Within the block (it may be entered again), every B3 call
+    (``kernels.stats_update.stats_update``) has its inputs cloned at the
+    call, since the ring slot it reads as ``y_old`` is overwritten after
+    it, and its outputs kept; :meth:`check` replays each through the plain
+    version bit for bit.  ``launches`` counts the kernel's launches inside
+    the block."""
+
+    def __init__(self, torch):
+        import threading
+        from repro_torch.kernels import stats_update as su
+        self.torch, self.su, self.calls, self.launches = torch, su, [], 0
+        self.lock = threading.Lock()
+
+    def __enter__(self):
+        torch, real = self.torch, self.su.stats_update
+        clone = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+
+        def wrapper(moments, *args, **kw):
+            kept = (type(moments)(*(clone(m) for m in moments)),
+                    *(clone(a) for a in args))
+            kept_kw = {k: clone(v) for k, v in kw.items()}
+            out = real(moments, *args, **kw)
+            with self.lock:
+                self.calls.append((kept, kept_kw, out))
+            return out
+        # the kernel's wrapper counts through its module's name: see capture
+        wrapper.launches = 0
+        self.real, self.wrapper = real, wrapper
+        self.su.stats_update = wrapper
+        return self
+
+    def __exit__(self, *exc):
+        self.su.stats_update = self.real
+        self.real.launches += self.wrapper.launches
+        self.launches += self.wrapper.launches
+
+    def check(self, label: str) -> float:
+        err = 0.0
+        for args, kw, (moments, stats) in self.calls:
+            want_m, want_s = self.su.stats_update(*args, **kw,
+                                                  backend="torch")
+            for a, b in zip((*moments, *stats), (*want_m, *want_s)):
+                if not same_bits(a, b):
+                    fail(f"{label}: B3 differs from its plain version")
+                err = max(err, float((a - b).abs().nan_to_num(0.0).max()))
+        return err
+
+
+class watched_replay:
+    """A ``ChaosReplay`` whose server records every serve (a snapshot of
+    the archive it read, the requests, the pools), whose engine records
+    every ``score_archive`` (a snapshot and the rows), whose ``result_sink``
+    counts what it hands the operator, and whose ``reconcile_once`` is
+    timed on the host clock.  Serves come from the operator and from the
+    admission worker, so the lists grow under a lock."""
+
+    def __init__(self, replay):
+        import threading
+        self.replay, self.lock = replay, threading.Lock()
+        self.served, self.rows, self.reconcile_s, self.sunk = [], [], [], 0
+        server, engine, op = replay.server, replay.server.engine, \
+            replay.operator
+        real_serve, real_score = server.serve, engine.score_archive
+        real_sink, real_reconcile = server.result_sink, op.reconcile_once
+        pin = lambda a: a.snapshot() if hasattr(a, "snapshot") else a  # noqa: E731
+
+        def serve(target, requests, **kw):
+            recs = real_serve(target, requests, **kw)
+            with self.lock:
+                self.served.append((pin(target), list(requests), recs))
+            return recs
+
+        def score_archive(archive, **kw):
+            out = real_score(archive, **kw)
+            with self.lock:
+                self.rows.append((pin(archive), out))
+            return out
+
+        def sink(request, rec):
+            with self.lock:
+                self.sunk += 1
+            real_sink(request, rec)
+
+        def reconcile_once():
+            t0 = time.perf_counter()
+            out = real_reconcile()
+            self.reconcile_s.append(time.perf_counter() - t0)
+            return out
+        server.serve, engine.score_archive = serve, score_archive
+        server.result_sink, op.reconcile_once = sink, reconcile_once
+        self.real_sink = real_sink
+
+    def unwatch(self) -> None:
+        server = self.replay.server
+        del server.serve, server.engine.score_archive
+        del self.replay.operator.reconcile_once
+        server.result_sink = self.real_sink
+
+    def hold(self, torch, label: str) -> dict:
+        """Every served pool against the CPU on its snapshot's statistics
+        (``compare_with_cpu``: F1 ties counted), and every
+        ``score_archive`` row against the CPU's on the same statistics."""
+        from repro_torch import convert
+        from repro_torch.core.engine import RecommendationEngine
+        self.unwatch()
+        recs = sum(len(r) for _, _, r in self.served)
+        if self.sunk != recs:
+            fail(f"{label}: result_sink saw {self.sunk} recommendations, "
+                 f"the server served {recs}")
+        ties = mismatched = 0
+        for snap, reqs, got in self.served:
+            check_pools(snap.host, [reqs], [got], label)
+            cmp = compare_with_cpu(torch, self.replay.server, snap, snap.host,
+                                   [reqs], [got], label)
+            ties += cmp["ties"]
+            mismatched += cmp["tie_mismatches"]
+        cpu = RecommendationEngine(device="cpu")
+        row_err, not_bit_equal = 0.0, 0
+        for snap, rows in self.rows:
+            want = cpu.score_archive(convert.archive_from_numpy(
+                snap.host, host_stats(snap), device="cpu", key="cpu"))
+            if not np.allclose(rows[1], want[1], rtol=ROW_RTOL,
+                               atol=ROW_ATOL):
+                fail(f"{label}: score_archive's availability row is off "
+                     f"the CPU's")
+            row_err = max(row_err, float(np.abs(rows[1] - want[1]).max()))
+            not_bit_equal += not all(same_bits(a, b)
+                                     for a, b in zip(rows, want))
+        ms = np.array(self.reconcile_s) * 1e3
+        return dict(serve_calls=len(self.served), recommendations=recs,
+                    ties=ties, tie_mismatches=mismatched,
+                    score_rows=len(self.rows),
+                    score_row_max_abs_err=row_err,
+                    score_rows_not_bit_equal=not_bit_equal,
+                    reconcile_ms={"p50": float(np.percentile(ms, 50)),
+                                  "p90": float(np.percentile(ms, 90)),
+                                  "max": float(ms.max())})
+
+
+def replay_gates(label: str, r, *, control: bool = False,
+                 outages: bool = False, slack: bool = False) -> None:
+    """``benchmarks/operator_replay.py``'s hard gates on one report.
+    ``slack``: the operator must have reacted only if a pool ever fell
+    short of its target (a delivered sample under 1), for a schedule whose
+    reclaims a pool's surplus nodes may absorb."""
+    fails = []
+    if r.stranded_tickets:
+        fails.append(f"{r.stranded_tickets} stranded tickets")
+    if not r.worker_alive_at_end:
+        fails.append("the admission worker died")
+    if r.unresolved_pools:
+        fails.append(f"{r.unresolved_pools} unresolved pools")
+    if control and r.delivery_gap > NOFAULT_TOLERANCE:
+        fails.append(f"delivered {r.delivered_availability} below recommended "
+                     f"{r.recommended_availability} - {NOFAULT_TOLERANCE}")
+    if not control:
+        if r.interruptions < 1:
+            fails.append("the schedule interrupted nothing")
+        if (r.rerecommendations + r.migrations_planned < 1
+                and not (slack and r.delivered_availability == 1.0)):
+            fails.append("the operator never reacted")
+    if outages:
+        if r.stale_cycles < 1 or r.ingest_failures < 1:
+            fails.append(f"the outage never went stale ({r.stale_cycles} "
+                         f"stale cycles, {r.ingest_failures} failures)")
+        if not r.failed_tickets == r.failed_drains >= 1:
+            fails.append(f"{r.failed_tickets} failed tickets against "
+                         f"{r.failed_drains} failed drains")
+    if fails:
+        fail(f"{label}: " + "; ".join(fails))
+
+
+def op_replay(torch, label: str, cycles: int, schedule, requests, add,
+              **world) -> tuple:
+    """One ``ChaosReplay`` on the card over an injected world (no second
+    collection: the ring is primed with what the collector holds), run as
+    one serving segment (``add``), every B3 tick held, every served pool
+    and ``score_archive`` row against the CPU."""
+    from repro_torch.operator import ChaosReplay
+    t0 = time.perf_counter()
+    primed = world["collector"].ticks
+    replay = ChaosReplay(**world, device=DEVICE, warmup_cycles=0,
+                         window=INGEST_WINDOW, cycles=cycles,
+                         period_min=OP_PERIOD_MIN, requests=requests,
+                         schedule=schedule)
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    watch, ticks = watched_replay(replay), held_ticks(torch)
+    t0 = time.perf_counter()
+    with ticks:
+        report, launches = add(label, lambda: replay.run(label),
+                               sharded=world.get("shard_bounds") is not None)
+    run_s = time.perf_counter() - t0
+    held = watch.hold(torch, label)
+    b3_err = ticks.check(label)
+    if ticks.launches != len(ticks.calls):
+        fail(f"{label}: B3 launched {ticks.launches} times in "
+             f"{len(ticks.calls)} calls")
+    pools = [dict(amount=p.amount, alive_capacity=p.alive_capacity,
+                  alive_nodes=len(p.alive_members),
+                  types=len(p.alive_by_key()),
+                  interrupted=p.interrupted_total)
+             for p in replay.operator.cmdb.active_pools]
+    return report, launches, dict(
+        K=len(replay.ingestor.archive), primed_columns=primed, pools=pools,
+        prime_s=prime_s, run_s=run_s, launches=launches,
+        b3_launches=ticks.launches,
+        b3_max_abs_err=b3_err, **held,
+        report={**vars(report), "delivery_gap": report.delivery_gap})
+
+
+def multicloud_world():
+    """The three vendors' full registries (38 regions, every type and AZ:
+    K = 10,920), a tenth of the targets probed a cycle, an int8 host ring
+    of a week."""
+    from repro_torch.multicloud import ScenarioConfig, ScenarioEngine
+    return ScenarioEngine(ScenarioConfig(
+        vendors=("aws", "azure", "gcp"), regions_per_vendor=None,
+        types_per_region=None, azs_per_region=None, period_min=OP_PERIOD_MIN,
+        ring_capacity=INGEST_WINDOW, ring_dtype="int8",
+        budget_per_cycle=MC_BUDGET, seed=0))
+
+
+def multicloud_parity(torch, eng, add) -> dict:
+    """``benchmarks/multiregion_compare.py``'s parity gate on the card: a
+    region-sharded and a single ring primed from the same collector; each
+    of ``MC_PARITY_TICKS`` cycles ends in ``poll()`` on both (B3 once a
+    shard and once, every tick held), then 16 mixed requests through
+    ``BatchServer.serve`` on both: pools and score rows bit-identical
+    between the rings, and against the CPU on the sharded snapshot's
+    statistics (F1 ties counted)."""
+    from repro_torch.serve import BatchServer
+    t0 = time.perf_counter()
+    server = BatchServer(device=DEVICE, bucket_sizes=BUCKETS)
+    sharded = eng.build_ingestor(window=INGEST_WINDOW, sharded=True,
+                                 device=DEVICE)
+    single = eng.build_ingestor(window=INGEST_WINDOW, sharded=False,
+                                name="multicloud-single", device=DEVICE)
+    sharded.prime()
+    single.prime()
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    n_shards = sharded.archive.n_shards
+    ticks = held_ticks(torch)
+    rng = np.random.default_rng(27)
+    ties = mismatched = 0
+    for tick in range(1, MC_PARITY_TICKS + 1):
+        eng.warmup(1)
+        with ticks:
+            if sharded.poll() != 1 or single.poll() != 1:
+                fail("multicloud parity: a poll absorbed no single tick")
+        reqs = mixed_requests(rng, B_FULL, regions=MC_REGIONS)
+        label = f"multicloud parity tick {tick}"
+        got, n = add(f"{label} sharded", lambda: server.serve(
+            sharded.archive, reqs), sharded=True)
+        if not n["score_fuse_phase0"] == n["score_fuse"] == n_shards:
+            fail(f"{label}: B1 launched {n} on {n_shards} region shards")
+        want, _ = add(f"{label} single", lambda: server.serve(
+            single.archive, reqs))
+        same_pools(got, want, label)
+        for a, b in zip(got, want):
+            if not (same_bits(a.availability, b.availability)
+                    and same_bits(a.cost, b.cost)):
+                fail(f"{label}: score rows differ between the rings")
+        snap = sharded.archive.snapshot()
+        check_pools(snap.host, [reqs], [got], label)
+        cmp = compare_with_cpu(torch, server, snap, snap.host, [reqs], [got],
+                               label)
+        ties += cmp["ties"]
+        mismatched += cmp["tie_mismatches"]
+    if ticks.launches != MC_PARITY_TICKS * (n_shards + 1):
+        fail(f"multicloud parity: B3 launched {ticks.launches} times over "
+             f"{MC_PARITY_TICKS} ticks of {n_shards} shards and one ring")
+    return dict(shards=n_shards, prime_s=prime_s, ticks=MC_PARITY_TICKS,
+                requests=MC_PARITY_TICKS * B_FULL, b3_launches=ticks.launches,
+                b3_max_abs_err=ticks.check("multicloud parity"), ties=ties,
+                tie_mismatches=mismatched,
+                b1_vec_shards=shard_vec_paths(torch, sharded.archive))
+
+
+def shard_vec_paths(torch, archive) -> int:
+    """On how many region shards B1 takes its 16-byte path: each shard's
+    statistics and catalog slice are tensors of their own, so the path
+    turns on the shard's length alone (a multiple of 4)."""
+    from repro_torch.kernels import score_fuse as sf
+    return sum(sf.vec_ok(len(s), (torch.stack(tuple(s.score_stats())),
+                                  s.prices, s.vcpus, s.memory_gb), ())
+               for s in archive.shards)
+
+
+def operator_phase(torch, market, col) -> tuple:
+    """The closed loop and the region-sharded multi-vendor world on the
+    card (see the module docstring).  B1's and B2's counters are set to 0
+    before each serving segment and read after it (``launch_segment``),
+    B3's around each replay's and each parity tick's polls; every launch is
+    held bit for bit against its plain version."""
+    from repro_torch.core.types import ResourceRequest
+    from repro_torch.multicloud.compare import default_reclaims
+    from repro_torch.operator import ChaosSchedule
+
+    t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    launches = {"score_fuse": 0, "score_fuse_phase0": 0, "pool_scan": 0,
+                "stats_update": 0}
+    err = dict.fromkeys(launches, 0.0)
+
+    def add(label, fn, *, sharded=False):
+        out, n, e = launch_segment(torch, label, fn, sharded=sharded)
+        for k in n:
+            launches[k] += n[k]
+            err[k] = max(err[k], e[k])
+        return out, n
+
+    def b3(stats):
+        launches["stats_update"] += stats["b3_launches"]
+        err["stats_update"] = max(err["stats_update"],
+                                  stats["b3_max_abs_err"])
+
+    # (c1) the operator's closed loop on the sim phase's world, K = 6400
+    reqs = [ResourceRequest(cpus=48.0, weight=0.5),
+            ResourceRequest(cpus=24.0, weight=0.8),
+            ResourceRequest(memory_gb=96.0, weight=0.3),
+            ResourceRequest(cpus=SIM_POOL_CPUS, weight=0.5)]
+    control, _, control_stats = op_replay(
+        torch, "operator control", OP_CONTROL_CYCLES, ChaosSchedule(), reqs,
+        add, market=market, collector=col)
+    replay_gates("operator control", control, control=True)
+    b3(control_stats)
+    faulty, _, faulty_stats = op_replay(
+        torch, "operator faults", OP_FAULT_CYCLES, ChaosSchedule(**OP_FAULTS),
+        reqs, add, market=market, collector=col)
+    replay_gates("operator faults", faulty, outages=True)
+    b3(faulty_stats)
+    lap("operator")
+
+    # (c2) three vendors at full width, one ring shard a region
+    eng = multicloud_world()
+    lap("multicloud world")
+    eng.warmup(MC_WARMUP)
+    lap("multicloud warmup")
+    bounds = eng.region_bounds
+    parity = multicloud_parity(torch, eng, add)
+    b3(parity)
+    lap("multicloud parity")
+    mc, n, mc_stats = op_replay(
+        torch, "multicloud replay", MC_CYCLES,
+        ChaosSchedule(reclaims=default_reclaims(MC_CYCLES)),
+        [ResourceRequest(cpus=c, weight=w) for c, w in MC_REQUESTS], add,
+        market=eng.federation, collector=eng.collector, shard_bounds=bounds)
+    # at full width the 1536-vCPU pool spans tens of types and hundreds of
+    # nodes, so the drumbeat (3 nodes every 5 cycles) may take only its
+    # surplus: the operator then has nothing to react to
+    replay_gates("multicloud replay", mc, slack=True)
+    b3(mc_stats)
+    if not (n["score_fuse_phase0"] == n["score_fuse"]
+            and n["score_fuse"] % len(bounds) == 0):
+        fail(f"multicloud replay: B1 launched {n}, not a phase-0 and an emit "
+             f"for each of {len(bounds)} region shards")
+    if mc_stats["b3_launches"] % len(bounds):
+        fail(f"multicloud replay: B3 launched {mc_stats['b3_launches']} "
+             f"times on {len(bounds)} shards")
+    lap("multicloud replay")
+    for name, k in launches.items():
+        if k == 0:
+            fail(f"operator phase: the path never launched kernel {name}")
+    extents = [b - a for a, b in bounds]
+    report = dict(
+        operator=dict(K=control_stats["K"], control=control_stats,
+                      faults=faulty_stats),
+        multicloud=dict(
+            K=eng.n_targets, regions=len(bounds),
+            extents=dict(min=min(extents), max=max(extents)),
+            offsets_not_16=sum(a % 16 != 0 for a, _ in bounds),
+            warmup_cycles=MC_WARMUP, ring=INGEST_WINDOW,
+            collected=eng.collector.ticks,
+            missing_responses=eng.collector.missing_responses,
+            parity=parity, replay=mc_stats),
+        launches=launches, max_abs_err=err, seconds=laps,
+        phase_s=time.perf_counter() - t_start)
     return launches, report
 
 
@@ -2873,7 +3338,7 @@ def main() -> None:
     timings["stats_update"]["shard_phase"] = dict(
         launches=shard_launches["stats_update"])
 
-    sim_launches, sim = sim_phase(torch)
+    sim_launches, sim, sim_world_after = sim_phase(torch)
     print("sim phase: " + json.dumps(sim))
     print(f"sim phase: {sim['phase_s']:.1f} s (budget {SIM_BUDGET_S:.0f} s): "
           + ", ".join(f"{k} {v:.1f}" for k, v in sim["seconds"].items())
@@ -2892,6 +3357,39 @@ def main() -> None:
     for name, n in sim_launches.items():
         timings[name]["sim_phase"] = dict(
             launches=n, max_abs_err=sim["max_abs_err"][name])
+
+    op_launches, op = operator_phase(torch, *sim_world_after)
+    del sim_world_after
+    print("operator phase: " + json.dumps(op))
+    mc = op["multicloud"]
+    print(f"operator phase: {op['phase_s']:.1f} s (budget {OP_BUDGET_S:.0f} "
+          "s): " + ", ".join(f"{k} {v:.1f}" for k, v in op["seconds"].items())
+          + f"; multicloud K = {mc['K']} in {mc['regions']} region shards, "
+          f"{mc['warmup_cycles']} cycles (two days) primed into a ring of "
+          f"{mc['ring']}: the one cut in depth")
+    runs = {"control": op["operator"]["control"],
+            "faults": op["operator"]["faults"], "multicloud": mc["replay"]}
+    print("operator phase reconcile_once on the host clock (ms), p50 / p90: "
+          + "; ".join(f"{k} {v['reconcile_ms']['p50']:.2f} / "
+                      f"{v['reconcile_ms']['p90']:.2f}"
+                      for k, v in runs.items()))
+    print("operator phase, simulator outcomes (not card numbers): " + "; ".join(
+        f"{k} delivered {v['report']['delivered_availability']:.4f} "
+        f"recommended {v['report']['recommended_availability']:.4f}, "
+        f"{v['report']['rerecommendations']} re-recommendations, "
+        f"{v['report']['migrations_planned']} plans, "
+        f"{v['report']['launches']} launches, "
+        f"{v['report']['retirements']} retirements, "
+        f"{v['report']['interruptions']} interruptions"
+        for k, v in runs.items()))
+    timings["score_fuse"]["operator_phase"] = dict(
+        launches={"phase0": op_launches["score_fuse_phase0"],
+                  "emit": op_launches["score_fuse"]},
+        max_abs_err={"phase0": op["max_abs_err"]["score_fuse_phase0"],
+                     "emit": op["max_abs_err"]["score_fuse"]})
+    for name in ("pool_scan", "stats_update"):
+        timings[name]["operator_phase"] = dict(
+            launches=op_launches[name], max_abs_err=op["max_abs_err"][name])
 
     for arch in LM_ARCHS:
         t0 = time.perf_counter()

@@ -24,7 +24,11 @@ tree's norm, as the CPU run is held against the reference.  The port's
 simulator world, ingested on the card and served through admission, is
 held against its CPU run as the main path is (F1 ties only), and the load
 harness must shed at twice the card's measured capacity with every ledger
-balanced.
+balanced.  The closed-loop operator's fault-injected replay on the card
+must report what the CPU's does, field by field; region-sharded rings over
+three vendors must give one ring's batch arrays bit for bit; and B1 and B2
+must hold on every region slice of the full three-vendor catalog, on and
+off the 16-byte path.
 """
 import dataclasses
 import time
@@ -870,3 +874,133 @@ def test_reduced_train_step_on_the_card_matches_cpu(cuda):
     print(f"master weights: worst leaf {worst:.3g} of the tree's norm")
     assert worst <= 2e-2
 
+
+
+def test_operator_closed_loop_on_the_card_matches_cpu(cuda):
+    """``tests/test_operator.py``'s full fault menu through the port's
+    ``ChaosReplay`` on the card (tiled lanes, so B1 and B2 run at this
+    size): the benchmark's gates hold, B1, B2 and B3 launched, and the
+    report equals the same replay's on the CPU field by field."""
+    from repro_torch.operator import ChaosReplay, ChaosSchedule
+    config = EngineConfig(score_impl="tiled", pool_impl="tiled")
+    schedule = ChaosSchedule(
+        collector_outages=frozenset({2}), delayed_ticks=frozenset({4}),
+        reclaims={1: 4, 5: 6}, failing_drains=frozenset({3}))
+    reports = []
+    for device in ("cpu", cuda):
+        tsf.score_fuse_batch.launches = tps.pool_scan.launches = 0
+        tsu.stats_update.launches = 0
+        reports.append(ChaosReplay(
+            seed=7, n_targets=24, window=6, warmup_cycles=6, cycles=8,
+            schedule=schedule, engine_config=config,
+            device=device).run("card"))
+    assert tsf.score_fuse_batch.launches > 0 and tps.pool_scan.launches > 0
+    assert tsu.stats_update.launches > 0
+    cpu, card = reports
+    assert dataclasses.asdict(card) == dataclasses.asdict(cpu)
+    assert card.stranded_tickets == 0 and card.worker_alive_at_end
+    assert card.unresolved_pools == 0 and card.interruptions >= 1
+    assert card.failed_tickets == card.failed_drains >= 1
+    assert card.stale_cycles >= 1
+
+
+def test_region_sharded_rings_on_the_card_match_one_ring(cuda):
+    """Three vendors, two regions each, one ring shard a region on the
+    card: every tick's B3 once a shard (and once on the single ring), a
+    phase 0 and an emit a shard and batch; the seven batch arrays equal the
+    single ring's bit for bit, and the single ring's pools the CPU's on its
+    statistics (F1 ties only)."""
+    from repro_torch.core import RecommendationEngine
+    from repro_torch.multicloud import ScenarioConfig, ScenarioEngine
+    eng = ScenarioEngine(ScenarioConfig(
+        vendors=("aws", "azure", "gcp"), regions_per_vendor=2,
+        types_per_region=8, azs_per_region=2, budget_per_cycle=16, seed=3,
+        ring_capacity=64))
+    eng.warmup(24)
+    n = len(eng.region_bounds)
+    sharded = eng.build_ingestor(window=32, sharded=True, device=cuda)
+    single = eng.build_ingestor(window=32, sharded=False, name="one",
+                                device=cuda)
+    sharded.prime()
+    single.prime()
+    engine = RecommendationEngine(EngineConfig(score_impl="tiled"),
+                                  device=cuda)
+    reqs = [ResourceRequest(cpus=24.0, weight=0.3),
+            ResourceRequest(cpus=96.0, weight=0.7, lam=0.2),
+            ResourceRequest(memory_gb=64.0, weight=0.5),
+            ResourceRequest(cpus=64.0, regions=["us-east-1"])]
+    for _ in range(3):
+        eng.warmup(1)
+        tsu.stats_update.launches = 0
+        assert sharded.poll() == 1 and single.poll() == 1
+        assert tsu.stats_update.launches == n + 1
+        cands = sharded.archive.host
+        batch = RequestBatch.from_requests(cands, reqs, pad_to=4)
+        tsf.score_fuse_phase0.launches = tsf.score_fuse_batch.launches = 0
+        got = engine.batch_arrays(cands, batch, archive=sharded.archive)
+        assert tsf.score_fuse_phase0.launches == n
+        assert tsf.score_fuse_batch.launches == n
+        want = engine.batch_arrays(cands, batch, archive=single.archive)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+    server = BatchServer(config=EngineConfig(score_impl="tiled"),
+                         device=cuda, bucket_sizes=(1, 4))
+    snap = single.archive.snapshot()
+    _hold_against_cpu(cuda, server, snap, snap.host, reqs,
+                      server.serve(snap, reqs))
+
+
+def test_region_slices_that_break_the_16_byte_path(cuda):
+    """The full three-vendor catalog (38 regions, K = 10,920): B1's phase 0
+    and emit, and B2, on every region's slice placed at its own offset in a
+    full-width buffer (a multiple of 4 elements: the 16-byte path) and one
+    element further (off it), bit-identical to the plain versions."""
+    from repro_torch.multicloud import ScenarioConfig, ScenarioEngine
+    eng = ScenarioEngine(ScenarioConfig(
+        vendors=("aws", "azure", "gcp"), regions_per_vendor=None,
+        types_per_region=None, azs_per_region=None, budget_per_cycle=1092,
+        seed=0, ring_capacity=16))
+    eng.warmup(8)
+    assert eng.n_targets == 10920 and len(eng.region_bounds) == 38
+    cands = eng.collector.to_candidate_set(window=8)
+    full = DeviceArchive.stage(cands, device=cuda)
+    stats = torch.stack(tuple(full.score_stats()))
+    reqs = [ResourceRequest(cpus=128.0), ResourceRequest(memory_gb=96.0,
+                                                         weight=0.7)]
+    batch = RequestBatch.from_requests(cands, reqs)
+    uniq, inv = _dedup_masks(batch.masks)
+    on = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=cuda)  # noqa: E731
+    vecs = {}
+    for a, b in eng.region_bounds:
+        for off in (a, a + 1):
+            args = (_offset(stats[:, a:b].contiguous(), off),
+                    _offset(full.prices[a:b], off),
+                    _offset(full.vcpus[a:b], off),
+                    _offset(full.memory_gb[a:b], off),
+                    _offset(on(batch.masks[:, a:b]), off),
+                    on(batch.use_cpus), on(batch.amounts),
+                    _offset(on(uniq[:, a:b]), off))
+            vec = tsf.vec_ok(b - a, args[:4], (args[4], args[7]))
+            vecs[off - a] = vecs.get(off - a, set()) | {vec}
+            ext, cmin = tsf.score_fuse_phase0(*args)
+            want_ext, want_cmin = tsf.score_fuse_phase0(*args,
+                                                        backend="torch")
+            torch.cuda.synchronize()
+            assert _same(ext, want_ext) and _same(cmin, want_cmin), (a, off)
+            emit = (*args[:7], on(batch.lams), on(batch.weights), args[7],
+                    inv)
+            got = tsf.score_fuse_batch(*emit, extrema=ext, cost_floor=cmin)
+            want = tsf.score_fuse_batch(*emit, extrema=want_ext,
+                                        cost_floor=want_cmin, backend="torch")
+            torch.cuda.synchronize()
+            for name in ("comb", "avail", "cost"):
+                assert _same(getattr(got, name), getattr(want, name)), (
+                    a, off, name)
+            caps = torch.where(args[5][:, None], args[2], args[3])
+            _, s, c = tpool._sort_masked(want.comb, caps, args[4])
+            s, c = _offset(s, off), _offset(c, off)
+            for x, y in zip(tps.pool_scan(s, c, args[6]),
+                            tps.pool_scan(s, c, args[6], backend="torch")):
+                assert torch.equal(x, y), (a, off)
+    # every region's extent is a multiple of 8 and every offset of 4
+    assert vecs == {0: {True}, 1: {False}}

@@ -25,6 +25,8 @@ from repro_torch.data import make_pipeline
 from repro_torch.launch import train as train_launcher
 from repro_torch.kernels import _build
 from repro_torch.models import get_model
+from repro_torch.multicloud import ScenarioEngine
+from repro_torch.operator import ChaosReplay
 from repro_torch.serve import ArchiveCache, BatchServer, DeviceArchive
 from repro_torch.shard import ShardedArchive, ShardedRollingArchive
 
@@ -63,7 +65,13 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.cloudsim.sps", "repro_torch.cloudsim.probes",
            "repro_torch.cloudsim.collector", "repro_torch.loadgen",
            "repro_torch.loadgen.arrivals", "repro_torch.loadgen.workload",
-           "repro_torch.loadgen.harness"]
+           "repro_torch.loadgen.harness", "repro_torch.operator",
+           "repro_torch.operator.cmdb", "repro_torch.operator.risk",
+           "repro_torch.operator.plan", "repro_torch.operator.loop",
+           "repro_torch.operator.chaos", "repro_torch.multicloud",
+           "repro_torch.multicloud.vendors", "repro_torch.multicloud.adapters",
+           "repro_torch.multicloud.federation",
+           "repro_torch.multicloud.scenario", "repro_torch.multicloud.compare"]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
@@ -134,10 +142,13 @@ def _tiny_candidates() -> CandidateSet:
     lambda: DeviceArchive.stage(_tiny_candidates(), precision="int8"),
     lambda: ShardedArchive.stage(_tiny_candidates(), n_shards=2),
     lambda: ShardedRollingArchive(_tiny_candidates(), n_shards=2),
+    lambda: ChaosReplay(n_targets=4, window=2, warmup_cycles=2, cycles=1),
+    lambda: ScenarioEngine(types_per_region=2).build_ingestor(window=2),
 ], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage",
         "model", "params", "model-rwkv6", "model-recurrentgemma",
         "model-qwen2", "pipeline", "train-state", "launcher", "stage-int8",
-        "stage-sharded", "rolling-sharded"])
+        "stage-sharded", "rolling-sharded", "chaos-replay",
+        "scenario-ingestor"])
 def test_default_device_raises_without_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
