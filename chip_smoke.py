@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving, live-ingest, K-sharded and quantized
 archive paths, the paper's simulated-cloud pipeline (collector, ingestion,
 admission, baselines, load harness), the closed-loop operator and the
-region-sharded multi-vendor world, LM serving (DeepSeek-V2-Lite,
+region-sharded multi-vendor world, spot-elastic training with checkpoints
+and the int8 gradient exchange, LM serving (DeepSeek-V2-Lite,
 RWKV6-7B, RecurrentGemma-2B), and qwen2-0.5b's full-sequence forward and
 training step, on one NVIDIA GPU.
 
@@ -132,6 +133,32 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    re-recommendations, plans, launches, retirements, delivered and
    recommended availability (simulator outcomes), and its seconds against
    its 120 s budget.
+5d. Elastic phase (``elastic_phase``, on the sim phase's market and
+   collector, K = 6400): ``SpotElasticTrainer`` trains qwen2-0.5b at full
+   width and depth (494 M parameters drawn on the card) on
+   ``ElasticConfig()``'s 4 nodes of 64 vCPUs at W = 0.5 with the int8
+   exchange, a checkpoint every 4 steps, batches of 8 x 512
+   tokens from ``make_pipeline``, 10 market minutes a step: ``train(6)``,
+   every node reclaimed, ``train(10)``, which re-provisions through the
+   engine, restores step 4 and runs steps 4-9.  Every provisioning is one
+   ``RecommendationEngine.recommend`` on the card (B2 at K = 6400); the
+   whole run is one ``launch_segment`` (every B2 launch held bit for bit;
+   the phase fails if B2 never launched) and each pool is held against a
+   CPU ``recommend`` on the same candidates (F1 ties counted).  The
+   events must hold checkpoint @ 4, an interruption, the re-provisioning
+   and the rewind to 4 in that order; every save copies the state to the
+   host and every restore must equal that copy bit for bit.  The first
+   step's worker gradients of the embedding and the first layer go
+   through the int8 exchange on the card and on the CPU: scales bit-equal,
+   codes equal but at half-way ties, wire bytes equal.  Then
+   ``launch.train.main`` on the reduced model with ``--ckpt-dir``: an
+   uninterrupted 8-step run, a run killed at step 4 after its checkpoint
+   and its ``--resume`` (restored state and losses bit-equal to the saved
+   state and the uninterrupted run's).  Prints the
+   phase's seconds against its 120 s budget, step p50 (its gradient,
+   exchange and update parts) and tokens/s, a profiled node's gradient
+   call, each checkpoint's bytes and seconds, peak memory, B2's launches and the
+   exchange's wire bytes against the exact exchange's.
 6. LM phases, one per architecture, each through ``lm_phase``:
    DeepSeek-V2-Lite (27 layers, 15.7 B parameters), ``rwkv6-7b`` (32
    layers, 8.88 B) and ``recurrentgemma-2b`` (26 layers, 3.55 B) at full
@@ -303,6 +330,28 @@ MC_REGIONS = ("us-east-1", "eu-west-1", "us-central1")   # aws rows take c5/m5
 MC_REQUESTS = ((SIM_POOL_CPUS, 0.5), (96.0, 0.5))
 # score_archive's availability rows against the CPU's (tests/_score_helpers)
 ROW_RTOL, ROW_ATOL = 1e-5, 1e-4
+
+# Elastic phase: spot-elastic training (repro_torch.elastic) of qwen2-0.5b at
+# full width and depth on the sim phase's market and catalog (K = 6400, no
+# second collection), ElasticConfig()'s defaults (4 nodes of 64 vCPUs, W =
+# 0.5, the int8 exchange) with a checkpoint every 4 steps;
+# examples/train_elastic.py's full preset's batch and sequence.  train(6),
+# every node reclaimed, train(10): re-provision, restore @ 4, steps 4-9.
+ELASTIC_ARCH = "qwen2-0.5b"
+ELASTIC_BUDGET_S = 120.0
+ELASTIC_BATCH = 8
+ELASTIC_SEQ = 512
+ELASTIC_MINUTES = 10.0
+ELASTIC_CKPT_EVERY = 4
+ELASTIC_RUNS = (6, 10)
+# the launcher's --ckpt-dir / --resume on the reduced model: a run killed at
+# step 4 after its checkpoint, resumed; its losses must equal an
+# uninterrupted run's bit for bit (the embedding's backward, an indexed
+# accumulate, sorts its indices on CUDA and sums each row in a fixed order,
+# so a step is deterministic; the losses of steps 0-3 and 4-7 differ by
+# 0.5% at most, which a tolerance would not tell from a wrong resume)
+LAUNCHER_STEPS = 8
+LAUNCHER_KILL_AT = 4
 
 # LM phases: the serving paths of three architectures at their published
 # widths and depths, the same batch, prompt and decode length for each
@@ -2387,6 +2436,449 @@ def operator_phase(torch, market, col) -> tuple:
     return launches, report
 
 
+class patched:
+    """Within the block, ``owner.name`` is ``make(real)``."""
+
+    def __init__(self, owner, name: str, make):
+        self.owner, self.name, self.make = owner, name, make
+
+    def __enter__(self):
+        self.real = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, self.make(self.real))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.real)
+
+
+_INT_OF_SIZE = {1: "int8", 2: "int16", 4: "int32", 8: "int64"}
+
+
+def leaves_bit_equal(torch, got, want) -> bool:
+    """Two lists of tensors equal bit for bit (dtype, shape and bits), the
+    comparison on ``got``'s device."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        view = getattr(torch, _INT_OF_SIZE[a.element_size()])
+        if not torch.equal(a.view(view), b.to(a.device).view(view)):
+            return False
+    return True
+
+
+class ckpt_watch:
+    """Within the block, every ``ckpt.save`` and ``ckpt.restore`` is timed
+    and its bytes on disk counted; each save copies the tree to the host
+    first, and each restore is held bit for bit against the copy of the
+    save it loads (the comparison is not timed)."""
+
+    def __init__(self, torch, label: str):
+        self.torch, self.label = torch, label
+        self.saves, self.restores, self.copies = [], [], {}
+
+    def __enter__(self):
+        from repro_torch.ckpt import checkpoint as ck
+        from repro_torch.train.optim import tree_flatten
+        torch, real_save, real_restore = self.torch, ck.save, ck.restore
+        self.ck, self.real = ck, (real_save, real_restore)
+
+        def save(root, tree, step, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            copy = [x.detach().to("cpu", copy=True)
+                    for x in tree_flatten(tree)[0]]
+            t1 = time.perf_counter()
+            final = real_save(root, tree, step, **kw)
+            t2 = time.perf_counter()
+            self.copies[(str(root), step)] = copy
+            self.saves.append(dict(
+                step=step, bytes=sum(f.stat().st_size
+                                     for f in final.iterdir()),
+                s=t2 - t1, host_copy_s=t1 - t0))
+            return final
+
+        def restore(root, like, **kw):
+            t0 = time.perf_counter()
+            tree, step = real_restore(root, like, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            d = Path(root) / f"step_{step:09d}"
+            want = self.copies.get((str(root), step))
+            if want is None:
+                fail(f"{self.label}: restored step {step}, which no save of "
+                     "this phase wrote")
+            if not leaves_bit_equal(torch, tree_flatten(tree)[0], want):
+                fail(f"{self.label}: the state restored at step {step} is "
+                     "not the saved one bit for bit")
+            self.restores.append(dict(
+                step=step, bytes=sum(f.stat().st_size for f in d.iterdir()),
+                s=t1 - t0, bit_equal=True))
+            return tree, step
+
+        ck.save, ck.restore = save, restore
+        return self
+
+    def __exit__(self, *exc):
+        self.ck.save, self.ck.restore = self.real
+        self.copies.clear()
+
+
+def hold_provisions(torch, records, label: str) -> dict:
+    """Each provisioning's pool (``recommend`` on the card) against a CPU
+    ``RecommendationEngine.recommend`` on the same candidates: score rows
+    within ``ROW_RTOL`` / ``ROW_ATOL`` (bit-equality counted), pools equal,
+    or an F1 tie: the two score orders agree on every prefix either scan
+    reached and ``prefix_sum_tie`` puts a decision within the two
+    devices' prefix-sum difference (counted)."""
+    from repro_torch.core import pool as pool_lib
+    from repro_torch.core.engine import RecommendationEngine
+    from repro_torch.core.scoring import f32
+    from repro_torch.kernels import pool_scan as ps
+
+    cpu = RecommendationEngine(device="cpu")
+    ties = rows_not_bit_equal = 0
+    row_err = 0.0
+    for cands, sub, req, rec, rows in records:
+        crec = cpu.recommend(cands, req)
+        crows = cpu.score(sub, req)
+        if not np.allclose(rows[0], crows[0], rtol=ROW_RTOL, atol=ROW_ATOL):
+            fail(f"{label}: combined scores of {req} are off the CPU's")
+        rows_not_bit_equal += not all(same_bits(a, b)
+                                      for a, b in zip(rows, crows))
+        row_err = max(row_err, float(np.abs(rows[0] - crows[0]).max()))
+        if (list(rec.names) == list(crec.names)
+                and list(rec.azs) == list(crec.azs)
+                and list(rec.regions) == list(crec.regions)
+                and np.array_equal(rec.counts, crec.counts)):
+            continue
+        caps = np.asarray(req.capacity_of(sub), np.float64)
+
+        def scan(comb, dev):
+            s_all = f32(comb, dev)
+            order = torch.sort(-s_all, stable=True).indices
+            s, c = s_all[order], f32(caps, dev)[order]
+            _, k_stop, any_term = pool_lib._prefix_allocations(
+                s, c, f32(req.amount, dev), impl="tiled")
+            return (order.cpu().numpy(), s.cpu().numpy(), c.cpu().numpy(),
+                    ps._clamped_prefix_sums(s).cpu().numpy(),
+                    (int(k_stop), bool(any_term)))
+
+        og, _, _, csg, rg = scan(rows[0], DEVICE)
+        oc, sc, cc, csc, rc = scan(crows[0], "cpu")
+        k_hi = max(k if found else len(oc) - 1 for k, found in (rg, rc))
+        if not np.array_equal(og[:k_hi + 1], oc[:k_hi + 1]):
+            fail(f"{label}: the card orders {req}'s candidates otherwise "
+                 "than the CPU within the scanned prefix")
+        tie, margin, budget = pool_lib.prefix_sum_tie(
+            sc, cc, float(req.amount), csc, csg, [rg, rc])
+        if not tie:
+            fail(f"{label}: pool of {req} differs between card and CPU "
+                 f"with margin {margin:.3g} > budget {budget:.3g}")
+        ties += 1
+    return dict(provisions=len(records), ties=ties,
+                rows_not_bit_equal=rows_not_bit_equal,
+                row_max_abs_err=row_err)
+
+
+def exchange_slice(torch, grads):
+    """The embedding's and the first layer's gradient leaves, cloned."""
+    from repro_torch.models.param import tree_map
+    return {"embed": grads["embed"].clone(),
+            "layer0": tree_map(lambda x: x[0].clone(), grads["unit"])}
+
+
+def hold_exchange(torch, worker_grads) -> dict:
+    """The int8 exchange of the first step's worker gradients (the
+    embedding and one layer) on the card against the CPU's: every scale
+    bit-equal, every code equal except at a half-way tie (counted), the
+    wire bytes equal, and the means bit-equal where no tie moved a code."""
+    from repro_torch.models.param import tree_map
+    from repro_torch.parallel import compression as comp
+    from repro_torch.train.optim import tree_flatten
+
+    def exchange(grads):
+        """``allreduce_compressed`` with fresh feedback, every
+        ``quantize`` it calls recorded: ``(mean, wire, [(g, q, s)])``."""
+        seen = []
+
+        def record(real):
+            def wrapped(g, error=None):
+                out = real(g, error)
+                seen.append((g, *out[:2]))
+                return out
+            return wrapped
+        with patched(comp, "quantize", record):
+            mean, wire = comp.allreduce_compressed(
+                grads, [comp.ErrorFeedback() for _ in grads])
+        return mean, wire, seen
+
+    host = [tree_map(lambda x: x.cpu(), g) for g in worker_grads]
+    mean_dev, wire_dev, on_dev = exchange(worker_grads)
+    mean_cpu, wire_cpu, on_cpu = exchange(host)
+    ties = codes = 0
+    for (_, qa, sa), (b, qb, sb) in zip(on_dev, on_cpu):
+        if not leaves_bit_equal(torch, [sa.cpu()], [sb]):
+            fail(f"elastic exchange: a scale differs, card {float(sa):.9g} "
+                 f"CPU {float(sb):.9g}")
+        diff = qa.cpu() != qb
+        codes += qb.numel()
+        if bool(diff.any()):
+            r = b.float() / sb
+            tie = (r - r.floor()).abs() == 0.5
+            if bool((diff & ~tie).any()):
+                fail("elastic exchange: an int8 code differs off a half-way "
+                     "tie")
+            ties += int(diff.sum())
+    if len(on_dev) != len(on_cpu) or not codes:
+        fail(f"elastic exchange: {len(on_dev)} quantised leaves on the "
+             f"card, {len(on_cpu)} on the CPU")
+    if wire_dev != wire_cpu:
+        fail(f"elastic exchange: wire bytes {wire_dev} on the card, "
+             f"{wire_cpu} on the CPU")
+    got, want = tree_flatten(mean_dev)[0], tree_flatten(mean_cpu)[0]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(got, want))
+    if ties == 0 and not leaves_bit_equal(torch, [a.cpu() for a in got],
+                                          want):
+        fail(f"elastic exchange: the means differ by {err:.3g} with no tie")
+    return dict(workers=len(worker_grads), codes=codes, ties=ties,
+                wire_bytes=wire_dev, mean_max_abs_err=err)
+
+
+class _Killed(Exception):
+    """The launcher's run, cut at a step (a reclaimed machine)."""
+
+
+def launcher_substep(torch, workdir: Path) -> dict:
+    """``launch.train.main`` on the reduced model with ``--ckpt-dir``: an
+    uninterrupted run, a run killed at step ``LAUNCHER_KILL_AT`` after
+    that step's checkpoint, and its ``--resume`` in a fresh call, whose
+    restored state must be the saved one (``ckpt_watch``) and whose losses
+    must be the uninterrupted run's, bit for bit."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.launch import train as launcher
+
+    def dies(real):
+        def make(*args, **kw):
+            pipe = real(*args, **kw)
+            batch = pipe.batch
+
+            def at(step):
+                if step == LAUNCHER_KILL_AT:
+                    raise _Killed
+                return batch(step)
+            pipe.batch = at
+            return pipe
+        return make
+
+    argv = ["--arch", ELASTIC_ARCH, "--reduced", "--steps",
+            str(LAUNCHER_STEPS), "--device", DEVICE]
+    whole_dir, cut_dir = workdir / "whole", workdir / "cut"
+    with ckpt_watch(torch, "launcher") as watch:
+        whole = launcher.main(argv + ["--ckpt-dir", str(whole_dir)])
+        with patched(launcher, "make_pipeline", dies):
+            try:
+                launcher.main(argv + ["--ckpt-dir", str(cut_dir)])
+                fail("launcher: the cut run was not cut")
+            except _Killed:
+                pass
+        if ck.latest_step(cut_dir) != LAUNCHER_KILL_AT:
+            fail(f"launcher: the cut run's latest checkpoint is "
+                 f"{ck.latest_step(cut_dir)}, not {LAUNCHER_KILL_AT}")
+        resumed = launcher.main(argv + ["--ckpt-dir", str(cut_dir),
+                                        "--resume"])
+    if [r["step"] for r in watch.restores] != [LAUNCHER_KILL_AT]:
+        fail(f"launcher: restores {watch.restores}")
+    tail = whole[LAUNCHER_KILL_AT:]
+    if len(resumed) != len(tail) or not np.isfinite(resumed).all():
+        fail(f"launcher: resumed losses {resumed} against {tail}")
+    if list(resumed) != list(tail):
+        fail(f"launcher: resumed losses {resumed} are not the "
+             f"uninterrupted run's {tail} bit for bit")
+    return dict(steps=LAUNCHER_STEPS, killed_at=LAUNCHER_KILL_AT,
+                whole=whole, resumed=resumed, bit_equal=True,
+                saves=watch.saves, restores=watch.restores)
+
+
+def elastic_events_in_order(events) -> bool:
+    """checkpoint @ 4, then an interruption, then the engine's
+    re-provisioning, then the rewind to 4."""
+    want = [lambda e: e.kind == "checkpoint" and e.step == ELASTIC_CKPT_EVERY,
+            lambda e: e.kind == "interruption",
+            lambda e: e.kind == "restore"
+            and e.detail.startswith("re-provisioned"),
+            lambda e: e.kind == "restore" and e.detail
+            == f"rewound to checkpoint @ {ELASTIC_CKPT_EVERY}"]
+    i = 0
+    for e in events:
+        if i < len(want) and want[i](e):
+            i += 1
+    return i == len(want)
+
+
+def elastic_phase(torch, market, col) -> tuple:
+    """Spot-elastic training of qwen2-0.5b at full width and depth on the
+    sim phase's world (see the module docstring).  B2's counter is set to
+    0 just before the trainer is built and read after its second run
+    (``launch_segment``: every launch held bit for bit)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import RecommendationEngine
+    from repro_torch.core.pool import POOL_TILED_AUTO_K
+    from repro_torch.data import make_pipeline
+    from repro_torch.elastic import ElasticConfig, SpotElasticTrainer
+    from repro_torch.elastic import cluster
+    from repro_torch.models import get_model
+    from repro_torch.train import optim
+    from repro_torch.train.optim import tree_flatten
+
+    t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    cands = col.to_candidate_set(window=INGEST_WINDOW)
+    if len(cands) < POOL_TILED_AUTO_K:
+        fail(f"elastic phase: K = {len(cands)} would not reach B2")
+    cfg = get_config(ELASTIC_ARCH)
+    model = get_model(cfg, device=DEVICE)
+    tcfg = TrainConfig(learning_rate=3e-3, warmup_steps=2,
+                       total_steps=ELASTIC_RUNS[1])
+    ecfg = ElasticConfig(checkpoint_every=ELASTIC_CKPT_EVERY)
+    pipe = make_pipeline(cfg, ELASTIC_SEQ, ELASTIC_BATCH, seed=0,
+                         device=DEVICE)
+    workdir = Path(tempfile.mkdtemp(prefix="elastic_phase_"))
+    provisions, first_grads, norms, step_s = [], [], [], []
+    exact_bytes, clock, parts = [0], [0.0], []
+
+    class Watched(RecommendationEngine):
+        def score(self, sub, req):
+            self.last = (sub, super().score(sub, req))
+            return self.last[1]
+
+        def recommend(self, cands, req):
+            rec = super().recommend(cands, req)
+            sub, rows = self.last
+            provisions.append((cands, sub, req, rec, rows))
+            return rec
+
+    class timed:
+        """The pipeline, marking each step's start."""
+
+        def batch(self, step):
+            torch.cuda.synchronize()
+            clock[0] = time.perf_counter()
+            return pipe.batch(step)
+
+    def exchange(real):
+        def wrapped(worker_grads, feedbacks):
+            if not first_grads:
+                first_grads.extend(exchange_slice(torch, g)
+                                   for g in worker_grads)
+            exact_bytes[0] += len(worker_grads) * sum(
+                4 * x.numel() for x in tree_flatten(worker_grads[0])[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(worker_grads, feedbacks)
+            torch.cuda.synchronize()
+            parts.append(dict(grads=t0 - clock[0],
+                              exchange=time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    def update(real):
+        def wrapped(*args):
+            t0 = time.perf_counter()
+            out = real(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - clock[0])
+            parts[-1]["update"] = time.perf_counter() - t0
+            norms.append(float(out[2]["grad_norm"]))
+            return out
+        return wrapped
+
+    def run():
+        tr = SpotElasticTrainer(model, tcfg, market, cands, ecfg, timed(),
+                                workdir / "elastic", seed=0, device=DEVICE)
+        first = tr.train(ELASTIC_RUNS[0], minutes_per_step=ELASTIC_MINUTES)
+        first_losses, first_events = list(first["losses"]), len(tr.events)
+        for n in list(tr.nodes):        # every node reclaimed at once
+            tr.market.terminate(n.market_ids)
+            for rec in tr.market.records:
+                if rec.node_id in n.market_ids:
+                    rec.reason = "interrupted"
+        second = tr.train(ELASTIC_RUNS[1], minutes_per_step=ELASTIC_MINUTES)
+        return tr, first_losses, first_events, second
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with patched(cluster, "RecommendationEngine", lambda real: Watched), \
+                patched(cluster, "allreduce_compressed", exchange), \
+                patched(optim, "adamw_update", update), \
+                ckpt_watch(torch, "elastic phase") as watch:
+            (tr, first_losses, first_events, second), launches, err = \
+                launch_segment(torch, "elastic phase", run)
+        peak = torch.cuda.max_memory_allocated()
+        lap("train")
+        losses = first_losses + second["losses"]
+        if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+            fail(f"elastic phase: losses {losses} or gradient norms {norms} "
+                 "not finite")
+        events = [(e.step, e.kind, e.detail) for e in tr.events]
+        if not elastic_events_in_order(tr.events):
+            fail(f"elastic phase: events {events} lack checkpoint @ "
+                 f"{ELASTIC_CKPT_EVERY}, interruption, re-provisioning and "
+                 f"the rewind to {ELASTIC_CKPT_EVERY}, in that order")
+        if second["restored_from"] != ELASTIC_CKPT_EVERY or not watch.restores:
+            fail(f"elastic phase: restored from {second['restored_from']}")
+        if launches["pool_scan"] == 0:
+            fail("elastic phase: the engine never launched B2")
+        nodes = [dict(node=n.node_id, pool="/".join(map(str, n.pool)),
+                      speed=n.speed) for n in tr.nodes]
+        wire = second["wire_bytes"]
+        shard = tr._node_shards(pipe.batch(0))[0]
+        grad_profile = profile_call(
+            torch, lambda: tr._grad_fn(tr.state.params, shard))
+        del tr, shard
+        provision = hold_provisions(torch, provisions, "elastic phase")
+        lap("provisions against the CPU")
+        exchange_check = hold_exchange(torch, first_grads)
+        del first_grads[:]
+        lap("exchange against the CPU")
+        launcher = launcher_substep(torch, workdir / "launcher")
+        lap("launcher")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    p50 = float(np.percentile(step_s, 50))
+    report = dict(
+        arch=ELASTIC_ARCH, params=model.num_params(), K=len(cands),
+        nodes_wanted=ecfg.nodes_wanted, batch=ELASTIC_BATCH, seq=ELASTIC_SEQ,
+        runs=list(ELASTIC_RUNS), minutes_per_step=ELASTIC_MINUTES,
+        checkpoint_every=ELASTIC_CKPT_EVERY,
+        events=events, events_of_first_run=first_events,
+        final_nodes=nodes, losses=losses, grad_norms=norms,
+        step_s=step_s, step_s_p50=p50,
+        step_parts_s_p50={k: float(np.percentile([x[k] for x in parts], 50))
+                          for k in ("grads", "exchange", "update")},
+        grad_profile=grad_profile,
+        tokens_per_s=ELASTIC_BATCH * ELASTIC_SEQ / p50,
+        saves=watch.saves, restores=watch.restores, peak_bytes=peak,
+        wire_bytes=dict(compressed=wire, exact=exact_bytes[0],
+                        ratio=wire / exact_bytes[0]),
+        provisions=provision, exchange=exchange_check, launcher=launcher,
+        launches=launches, max_abs_err=err, seconds=laps,
+        phase_s=time.perf_counter() - t_start)
+    return launches, report
+
+
 def bf16_closeness(got, want, floor=None):
     """(count beyond one bf16 ulp, count beyond both one ulp and ``floor``
     (1e-3 * max|want| when ``None``), max |got - want|) of two tensors on
@@ -3359,7 +3851,6 @@ def main() -> None:
             launches=n, max_abs_err=sim["max_abs_err"][name])
 
     op_launches, op = operator_phase(torch, *sim_world_after)
-    del sim_world_after
     print("operator phase: " + json.dumps(op))
     mc = op["multicloud"]
     print(f"operator phase: {op['phase_s']:.1f} s (budget {OP_BUDGET_S:.0f} "
@@ -3390,6 +3881,32 @@ def main() -> None:
     for name in ("pool_scan", "stats_update"):
         timings[name]["operator_phase"] = dict(
             launches=op_launches[name], max_abs_err=op["max_abs_err"][name])
+
+    el_launches, el = elastic_phase(torch, *sim_world_after)
+    del sim_world_after
+    print("elastic phase: " + json.dumps(el))
+    print(f"elastic phase: {el['phase_s']:.1f} s (budget "
+          f"{ELASTIC_BUDGET_S:.0f} s): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in el["seconds"].items())
+          + f"; {el['arch']} ({el['params']} parameters) on "
+          f"{el['nodes_wanted']} nodes over K = {el['K']}, step p50 "
+          f"{el['step_s_p50']:.4f} s ("
+          + ", ".join(f"{k} {v:.4f}"
+                      for k, v in el["step_parts_s_p50"].items())
+          + f"), {el['tokens_per_s']:.0f} tokens/s, a node's gradient "
+          f"call idle {el['grad_profile']['idle_share']:.3f}, "
+          f"peak {el['peak_bytes'] / 1e9:.2f} GB; B2 launched "
+          f"{el_launches['pool_scan']} times; wire bytes "
+          f"{el['wire_bytes']['compressed']} compressed against "
+          f"{el['wire_bytes']['exact']} exact")
+    print("elastic phase checkpoints (bytes, s): " + "; ".join(
+        [f"save @ {c['step']} {c['bytes']} in {c['s']:.2f}"
+         for c in el["saves"]]
+        + [f"restore @ {c['step']} {c['bytes']} in {c['s']:.2f}"
+           for c in el["restores"]]))
+    timings["pool_scan"]["elastic_phase"] = dict(
+        launches=el_launches["pool_scan"],
+        max_abs_err=el["max_abs_err"]["pool_scan"])
 
     for arch in LM_ARCHS:
         t0 = time.perf_counter()

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..ckpt import checkpoint as ckpt
 from ..configs.base import TrainConfig
 from ..configs.registry import ARCH_IDS, get_config
 from ..data import make_pipeline
@@ -25,7 +26,7 @@ from ..train import build_train_step, init_train_state
 
 
 def main(argv: list[str] | None = None) -> list[float]:
-    """Train; returns the per-step losses."""
+    """Train; returns the losses of the steps this call ran."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -40,9 +41,6 @@ def main(argv: list[str] | None = None) -> list[float]:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
-    if args.ckpt_dir or args.resume:
-        raise NotImplementedError("checkpoints (--ckpt-dir, --resume) need "
-                                  "ckpt/, which is not ported yet (ROADMAP A.9)")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -58,12 +56,17 @@ def main(argv: list[str] | None = None) -> list[float]:
 
     state = init_train_state(model, tcfg,
                              torch.Generator(device=dev).manual_seed(args.seed))
+    start_step = 0
+    if args.resume and args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
+        state, start_step = ckpt.restore(args.ckpt_dir, state)
+        print(f"resumed from step {start_step}")
+
     step_fn = build_train_step(model, tcfg)
     pipe = make_pipeline(cfg, seq_len=args.seq, global_batch=args.batch,
                          seed=args.seed, device=dev)
     losses = []
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         batch = pipe.batch(step)
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
@@ -72,6 +75,8 @@ def main(argv: list[str] | None = None) -> list[float]:
             print(f"step {step:>5}  loss {losses[-1]:.4f}  "
                   f"gnorm {float(metrics['grad_norm']):.3f}  "
                   f"lr {float(metrics['lr']):.2e}  {dt:.1f}s")
+        if args.ckpt_dir and (step + 1) % max(args.steps // 4, 1) == 0:
+            ckpt.save(args.ckpt_dir, state, step + 1)
     k = max(len(losses) // 10, 1)
     print(f"loss {np.mean(losses[:k]):.4f} -> {np.mean(losses[-k:]):.4f}")
     return losses

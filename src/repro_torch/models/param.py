@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from .._tree import tree_leaves, tree_map  # noqa: F401  (re-exported)
 
 #: most float32 elements drawn at once by :func:`init_params`; a larger leaf
 #: is drawn slice by slice along its leading axis
@@ -31,25 +32,6 @@ class ParamSpec:
 
     def __post_init__(self):
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
-
-
-def tree_map(f, tree):
-    """``f`` over the leaves of nested dicts / lists / tuples and named
-    tuples (``None`` stays ``None``)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(f, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        items = [tree_map(f, v) for v in tree]
-        return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
-    if tree is None:
-        return None
-    return f(tree)
-
-
-def tree_leaves(tree) -> list:
-    out: list = []
-    tree_map(out.append, tree)
-    return out
 
 
 def _fan_in(spec: ParamSpec) -> int:

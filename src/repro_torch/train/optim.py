@@ -15,7 +15,7 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import TrainConfig
-from ..models.param import tree_map
+from .._tree import tree_flatten, tree_map  # noqa: F401  (tree_flatten re-exported)
 
 
 class OptState(NamedTuple):
@@ -23,33 +23,6 @@ class OptState(NamedTuple):
     nu: dict
     master: dict | None   # float32 master copy (None if disabled)
     count: torch.Tensor   # 0-dim int32: updates taken
-
-
-def tree_flatten(tree):
-    """``(leaves, rebuild)`` in JAX's order: dict keys sorted, lists and
-    tuples in order, ``None`` holding no leaf.  ``rebuild(leaves)`` makes a
-    tree of the same layout (and dict key order) from new leaves."""
-    leaves: list = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            index = {k: walk(node[k]) for k in sorted(node)}
-            return {k: index[k] for k in node}
-        if isinstance(node, (list, tuple)):
-            items = [walk(v) for v in node]
-            return (type(node)(*items) if hasattr(node, "_fields")
-                    else type(node)(items))
-        if node is None:
-            return None
-        leaves.append(node)
-        return len(leaves) - 1
-
-    layout = walk(tree)
-
-    def rebuild(new):
-        return tree_map(lambda i: new[i], layout)
-
-    return leaves, rebuild
 
 
 def init_opt_state(params, tcfg: TrainConfig) -> OptState:

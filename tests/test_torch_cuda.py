@@ -1004,3 +1004,144 @@ def test_region_slices_that_break_the_16_byte_path(cuda):
                 assert torch.equal(x, y), (a, off)
     # every region's extent is a multiple of 8 and every offset of 4
     assert vecs == {0: {True}, 1: {False}}
+
+
+# ---------------------------------------------------------------------------
+# spot-elastic training: checkpoints, the int8 exchange, the trainer
+# ---------------------------------------------------------------------------
+
+def _bit_view(t):
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _assert_leaves_bit_equal(got, want):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(_bit_view(a.cpu()), _bit_view(b.cpu()))
+
+
+def test_gradient_exchange_on_the_card_matches_cpu(cuda):
+    """The int8 exchange of four workers' gradients (bf16 and float32
+    leaves over seven decades) on the card against the CPU: scales and
+    codes bit-equal but at half-way ties (none on these draws), three
+    rounds of error feedback and the compressed mean bit-equal, wire bytes
+    equal."""
+    from repro_torch.train.optim import tree_flatten
+    rng = np.random.default_rng(0)
+    shapes = [(512, 64), (2, 64, 4, 16), (2, 16), (64,)]
+
+    def tree():
+        leaves = [torch.from_numpy((rng.standard_normal(s) * 10.0 ** int(
+            rng.integers(-6, 2))).astype(np.float32)) for s in shapes]
+        leaves[0], leaves[1] = (x.to(torch.bfloat16) for x in leaves[:2])
+        return {"embed": leaves[0], "unit": {"wq": leaves[1],
+                                             "bk": leaves[2]},
+                "norm": leaves[3]}
+
+    for _ in range(3):
+        workers = [tree() for _ in range(4)]
+        for g in tree_flatten(workers[0])[0]:
+            qc, sc, ec = tcomp.quantize(g)
+            qg, sg, eg = tcomp.quantize(g.to(cuda))
+            _assert_leaves_bit_equal([qg, sg, eg], [qc, sc, ec])
+    fb_cpu = [tcomp.ErrorFeedback() for _ in range(4)]
+    fb_card = [tcomp.ErrorFeedback() for _ in range(4)]
+    for _ in range(3):
+        workers = [tree() for _ in range(4)]
+        mc, wc = tcomp.allreduce_compressed(workers, fb_cpu)
+        mg, wg = tcomp.allreduce_compressed(
+            [{k: (v.to(cuda) if isinstance(v, torch.Tensor)
+                  else {kk: vv.to(cuda) for kk, vv in v.items()})
+              for k, v in w.items()} for w in workers], fb_card)
+        assert wg == wc
+        _assert_leaves_bit_equal(tree_flatten(mg)[0], tree_flatten(mc)[0])
+    for a, b in zip(fb_card, fb_cpu):
+        _assert_leaves_bit_equal(a.error, b.error)
+    exact, wire_exact = tcomp.allreduce_exact(workers)
+    assert wc < wire_exact / 3
+
+
+def test_checkpoint_on_the_card_round_trips(cuda, tmp_path):
+    """The reduced qwen2-0.5b's training state saved from the card and
+    restored onto the card and onto the CPU bit for bit; an
+    ``AsyncCheckpointer`` snapshot taken from the card is not reached by an
+    in-place update after ``save``."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.param import tree_map
+    from repro_torch.train import init_train_state
+    from repro_torch.train.optim import tree_flatten
+    cfg = _reduced_qwen()
+    state = init_train_state(get_model(cfg, device=cuda), TrainConfig(),
+                             torch.Generator(device=cuda).manual_seed(0))
+    leaves = tree_flatten(state)[0]
+    ck.save(tmp_path / "sync", state, 3)
+    on_card, step = ck.restore(tmp_path / "sync", state)
+    assert step == 3
+    assert all(x.device.type == cuda.type for x in tree_flatten(on_card)[0])
+    _assert_leaves_bit_equal(tree_flatten(on_card)[0], leaves)
+    on_cpu, _ = ck.restore(tmp_path / "sync",
+                           tree_map(lambda t: t.cpu(), state))
+    assert all(x.device.type == "cpu" for x in tree_flatten(on_cpu)[0])
+    _assert_leaves_bit_equal(tree_flatten(on_cpu)[0], leaves)
+    before = [x.to("cpu", copy=True) for x in leaves]
+    ac = ck.AsyncCheckpointer(tmp_path / "async")
+    ac.save(state, 1)
+    for x in leaves:
+        x.add_(1)
+    ac.close()
+    got, _ = ck.restore(tmp_path / "async", state)
+    _assert_leaves_bit_equal(tree_flatten(got)[0], before)
+
+
+def test_elastic_trainer_on_the_card_matches_cpu(cuda, tmp_path):
+    """``SpotElasticTrainer`` over 640 pools (B2 on the card), the reduced
+    qwen2-0.5b, 3 nodes, a checkpoint every 4 steps, from one initial
+    state on the card and on the CPU: events, pools, wire bytes identical,
+    B2 launched; step 0's loss within 1e-3 relative (bf16 sums in another
+    order on the card), later losses within 5e-2 (a one-ulp change of
+    the initial state moves them that far on the CPU,
+    ``tests/test_torch_ckpt_elastic.py``), the run learning on both."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import make_pipeline
+    from repro_torch.elastic import ElasticConfig, SpotElasticTrainer
+    from repro_torch.models import get_model
+    from repro_torch.models.param import tree_map
+    from repro_torch.configs.registry import get_config
+    cfg = get_config("qwen2-0.5b").reduced(num_layers=2, vocab_size=128)
+    runs = []
+    for device in ("cpu", cuda):
+        market = SpotMarket(Catalog(seed=3, n_regions=2), seed=3)
+        targets = [(t.name, r, az) for t, r, az in market.pool_keys[::2]]
+        col = DataCollector(SPSQueryService(market, n_accounts=500), targets,
+                            CollectorConfig())
+        col.run(25)
+        tps.pool_scan.launches = 0
+        tr = SpotElasticTrainer(
+            get_model(cfg, device=device),
+            TrainConfig(learning_rate=3e-3, warmup_steps=2, total_steps=100),
+            market, col.to_candidate_set(),
+            ElasticConfig(nodes_wanted=3, checkpoint_every=4),
+            make_pipeline(cfg, 32, 6, device=device),
+            tmp_path / str(device), seed=3, device=device)
+        if runs:
+            tr.state = tree_map(lambda t: t.to(cuda), runs[0][0].state0)
+        tr.state0 = tree_map(lambda t: t.clone(), tr.state)
+        out = tr.train(12, minutes_per_step=5.0)
+        runs.append((tr, out, tps.pool_scan.launches))
+    (cpu, cout, _), (card, gout, b2) = runs
+    assert b2 >= 1
+    events = lambda o: [(e.step, e.kind, e.detail)  # noqa: E731
+                        for e in o["events"]]
+    assert events(gout) == events(cout)
+    assert [n.pool for n in card.nodes] == [n.pool for n in cpu.nodes]
+    for key in ("wire_bytes", "final_nodes", "restored_from"):
+        assert gout[key] == cout[key], key
+    lc, lg = np.asarray(cout["losses"]), np.asarray(gout["losses"])
+    rel = np.abs(lg - lc) / np.abs(lc)
+    print(f"losses card {lg}, CPU {lc}, relative {rel}")
+    assert rel[0] <= 1e-3 and rel.max() <= 5e-2
+    assert lg[-1] < lg[0] and lc[-1] < lc[0]

@@ -22,6 +22,7 @@ from repro_torch.configs.registry import get_config
 from repro_torch.core.engine import RecommendationEngine
 from repro_torch.core.types import CandidateSet
 from repro_torch.data import make_pipeline
+from repro_torch.elastic import ElasticConfig, SpotElasticTrainer
 from repro_torch.launch import train as train_launcher
 from repro_torch.kernels import _build
 from repro_torch.models import get_model
@@ -34,6 +35,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
+           "repro_torch._tree",
            "repro_torch.core", "repro_torch.core.engine",
            "repro_torch.core.pool", "repro_torch.core.scoring",
            "repro_torch.core.config", "repro_torch.core.types",
@@ -71,7 +73,19 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.operator.chaos", "repro_torch.multicloud",
            "repro_torch.multicloud.vendors", "repro_torch.multicloud.adapters",
            "repro_torch.multicloud.federation",
-           "repro_torch.multicloud.scenario", "repro_torch.multicloud.compare"]
+           "repro_torch.multicloud.scenario", "repro_torch.multicloud.compare",
+           "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+           "repro_torch.elastic", "repro_torch.elastic.cluster"]
+
+#: names the import check also reaches, beside the modules
+NAMES = [("repro_torch.parallel.compression", n)
+         for n in ("quantize", "dequantize", "ErrorFeedback",
+                   "allreduce_compressed", "allreduce_exact")]
+NAMES += [("repro_torch.ckpt", n)
+          for n in ("save", "restore", "latest_step", "AsyncCheckpointer")]
+NAMES += [("repro_torch.elastic", n)
+          for n in ("ElasticConfig", "Node", "StepEvent",
+                    "SpotElasticTrainer")]
 
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax|from\s+jax\b|from\s+repro(\.|\s+import\b)"
@@ -81,10 +95,31 @@ FORBIDDEN = re.compile(
 def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            f"for m, n in {NAMES!r}: getattr(importlib.import_module(m), n)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.serve.archive", "repro_torch.core.engine",
+    "repro_torch.core.config", "repro_torch.parallel.compression",
+    "repro_torch.ckpt"])
+def test_lower_layers_load_no_model_or_training(module):
+    """The archive tiers, the engine and checkpoints share the tree helpers
+    of ``repro_torch._tree``, not the LM or training stack."""
+    code = ("import importlib, sys\n"
+            f"importlib.import_module({module!r})\n"
+            "up = sorted(m for m in sys.modules\n"
+            "            if m.startswith(('repro_torch.models',\n"
+            "                             'repro_torch.train')))\n"
+            "print(up)\n"
+            "sys.exit(1 if up else 0)\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
@@ -144,11 +179,13 @@ def _tiny_candidates() -> CandidateSet:
     lambda: ShardedRollingArchive(_tiny_candidates(), n_shards=2),
     lambda: ChaosReplay(n_targets=4, window=2, warmup_cycles=2, cycles=1),
     lambda: ScenarioEngine(types_per_region=2).build_ingestor(window=2),
+    lambda: SpotElasticTrainer(None, None, None, None, ElasticConfig(), None,
+                               "unused"),
 ], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage",
         "model", "params", "model-rwkv6", "model-recurrentgemma",
         "model-qwen2", "pipeline", "train-state", "launcher", "stage-int8",
         "stage-sharded", "rolling-sharded", "chaos-replay",
-        "scenario-ingestor"])
+        "scenario-ingestor", "elastic-trainer"])
 def test_default_device_raises_without_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -47,7 +47,6 @@ from repro.models import moe as jmoe
 from repro_torch import convert
 from repro_torch.configs.registry import get_config as torch_config
 from repro_torch.models import attention as tattn
-from repro_torch.launch import train as train_launcher
 from repro_torch.models import Model as TorchModel
 from repro_torch.models import get_model as torch_model
 from repro_torch.models import layers as tlayers
@@ -376,10 +375,6 @@ def test_unported_paths_raise():
     pos = torch.arange(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="no backward"):
         tattn.attend(q, k, k, pos, pos, use_pallas=True)
-    # checkpoints of the training launcher
-    with pytest.raises(NotImplementedError, match="A.9"):
-        train_launcher.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
-                             "cpu", "--ckpt-dir", "unused"])
     # encoder-decoder models, modality frontends and prefix embeddings
     for arch in ("seamless-m4t-medium", "llava-next-mistral-7b"):
         with pytest.raises(NotImplementedError, match="A.9"):
