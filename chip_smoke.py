@@ -133,7 +133,29 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    re-recommendations, plans, launches, retirements, delivered and
    recommended availability (simulator outcomes), and its seconds against
    its 120 s budget.
-5d. Elastic phase (``elastic_phase``, on the sim phase's market and
+5d. Analysis phase (``analysis_phase``, on the operator phase's world):
+   the port's spotlint (``repro_torch.analysis``) over its default paths
+   must report 0 findings.  Then live ingestion and threaded serving
+   together under a fresh ``repro_torch.analysis.racecheck.LockRegistry``
+   (the server, the admission queue and the pump instrumented before any
+   thread starts): the ingest phase's feed over the K = 32768 catalog
+   primes a float32 ring of 1008 with 504 columns, an ``IngestPump``
+   (period 0) pumps 300 ticks (B3 once each, every call held bit for bit)
+   while the admission worker serves 4 x 16 mixed requests from 4 client
+   threads and one thread serves 3 x 16 directly on the current snapshot;
+   0 race reports, 0 lock-order cycles, 0 pump errors, ticks pumped equal
+   to the ring's appends and version advance, every B1 / B2 launch held
+   (``launch_segment``) and every served pool against a CPU run on the
+   snapshot its serve read (F1 ties counted).  Then the operator phase's
+   faulty schedule cut to 13 cycles (K = 6400, its failing drain at 12
+   included) with the server, the fault proxy, the queue and the CMDB
+   instrumented: 0 reports, 0 cycles, the replay gates.  Last, each on a
+   fresh registry, two negative controls that must fire: an off-lock
+   ``ServeStats.requests`` write (exactly one report naming it) and two
+   locks taken in opposite orders (exactly one cycle).  Prints the
+   acquisition-order edges, the tickets' p50 / p90 and the phase's seconds
+   against its 30 s budget.
+5e. Elastic phase (``elastic_phase``, on the sim phase's market and
    collector, K = 6400): ``SpotElasticTrainer`` trains qwen2-0.5b at full
    width and depth (494 M parameters drawn on the card) on
    ``ElasticConfig()``'s 4 nodes of 64 vCPUs at W = 0.5 with the int8
@@ -330,6 +352,21 @@ MC_REGIONS = ("us-east-1", "eu-west-1", "us-central1")   # aws rows take c5/m5
 MC_REQUESTS = ((SIM_POOL_CPUS, 0.5), (96.0, 0.5))
 # score_archive's availability rows against the CPU's (tests/_score_helpers)
 ROW_RTOL, ROW_ATOL = 1e-5, 1e-4
+
+# Analysis phase: the port's spotlint over its default paths, then live
+# ingestion and threaded serving together at the main path's width under
+# repro_torch.analysis.racecheck: a float32 ring of INGEST_WINDOW primed
+# with INGEST_PRIME columns of the ingest phase's feed, an IngestPump
+# (period 0) pumping ANALYSIS_TICKS ticks while the admission worker
+# serves ANALYSIS_CLIENTS x B_FULL requests from as many client threads and
+# one thread serves ANALYSIS_DIRECT batches directly; then the operator
+# phase's faulty schedule, cut to ANALYSIS_CYCLES cycles (its failing drain
+# at 12 included), instrumented; then the two negative controls.
+ANALYSIS_BUDGET_S = 30.0
+ANALYSIS_TICKS = 300
+ANALYSIS_CLIENTS = 4
+ANALYSIS_DIRECT = 3
+ANALYSIS_CYCLES = 13
 
 # Elastic phase: spot-elastic training (repro_torch.elastic) of qwen2-0.5b at
 # full width and depth on the sim phase's market and catalog (K = 6400, no
@@ -2188,11 +2225,14 @@ class watched_replay:
 
 
 def replay_gates(label: str, r, *, control: bool = False,
-                 outages: bool = False, slack: bool = False) -> None:
+                 outages: bool = False, slack: bool = False,
+                 react: bool = True) -> None:
     """``benchmarks/operator_replay.py``'s hard gates on one report.
     ``slack``: the operator must have reacted only if a pool ever fell
     short of its target (a delivered sample under 1), for a schedule whose
-    reclaims a pool's surplus nodes may absorb."""
+    reclaims a pool's surplus nodes may absorb.  ``react=False`` drops the
+    reaction gate, for a schedule cut to end before the operator may
+    react (the full schedule holds it in the operator phase)."""
     fails = []
     if r.stranded_tickets:
         fails.append(f"{r.stranded_tickets} stranded tickets")
@@ -2206,7 +2246,7 @@ def replay_gates(label: str, r, *, control: bool = False,
     if not control:
         if r.interruptions < 1:
             fails.append("the schedule interrupted nothing")
-        if (r.rerecommendations + r.migrations_planned < 1
+        if (react and r.rerecommendations + r.migrations_planned < 1
                 and not (slack and r.delivered_availability == 1.0)):
             fails.append("the operator never reacted")
     if outages:
@@ -2221,11 +2261,12 @@ def replay_gates(label: str, r, *, control: bool = False,
 
 
 def op_replay(torch, label: str, cycles: int, schedule, requests, add,
-              **world) -> tuple:
+              before_run=None, **world) -> tuple:
     """One ``ChaosReplay`` on the card over an injected world (no second
     collection: the ring is primed with what the collector holds), run as
     one serving segment (``add``), every B3 tick held, every served pool
-    and ``score_archive`` row against the CPU."""
+    and ``score_archive`` row against the CPU.  ``before_run(replay)`` is
+    called once the replay is built, before any of its threads start."""
     from repro_torch.operator import ChaosReplay
     t0 = time.perf_counter()
     primed = world["collector"].ticks
@@ -2235,6 +2276,8 @@ def op_replay(torch, label: str, cycles: int, schedule, requests, add,
                          schedule=schedule)
     torch.cuda.synchronize()
     prime_s = time.perf_counter() - t0
+    if before_run is not None:
+        before_run(replay)
     watch, ticks = watched_replay(replay), held_ticks(torch)
     t0 = time.perf_counter()
     with ticks:
@@ -2433,6 +2476,342 @@ def operator_phase(torch, market, col) -> tuple:
             parity=parity, replay=mc_stats),
         launches=launches, max_abs_err=err, seconds=laps,
         phase_s=time.perf_counter() - t_start)
+    return launches, report
+
+
+class recorded_serves:
+    """Within the block, ``server.serve`` records every call (the pinned
+    snapshot it read, the requests, the pools) under a lock: the admission
+    worker and direct callers serve from their own threads."""
+
+    def __init__(self, server):
+        import threading
+        self.server, self.lock, self.calls = server, threading.Lock(), []
+
+    def __enter__(self):
+        real = self.server.serve
+
+        def serve(target, requests, **kw):
+            recs = real(target, requests, **kw)
+            with self.lock:
+                self.calls.append((target, list(requests), recs))
+            return recs
+        self.server.serve = serve
+        return self
+
+    def __exit__(self, *exc):
+        del self.server.serve
+
+
+def lint_gate() -> dict:
+    """``repro_torch.analysis`` over its default paths: 0 findings."""
+    from repro_torch.analysis import DEFAULT_PATHS, run_paths
+    t0 = time.perf_counter()
+    findings, n_files = run_paths([ROOT / p for p in DEFAULT_PATHS])
+    lint_s = time.perf_counter() - t0
+    if findings:
+        fail("spotlint: " + "; ".join(f.format() for f in findings[:10]))
+    return dict(files=n_files, findings=0, s=lint_s)
+
+
+def pumped_serving(torch, cands, add) -> dict:
+    """Live ingestion and threaded serving at once under a fresh
+    ``LockRegistry``: an ``IngestPump`` (period 0) pumps ``ANALYSIS_TICKS``
+    ticks of the ingest phase's feed into a float32 ring of
+    ``INGEST_WINDOW`` (B3 once a tick) while the admission worker serves
+    ``ANALYSIS_CLIENTS`` x ``B_FULL`` requests from as many client threads
+    and one thread serves ``ANALYSIS_DIRECT`` batches on the current
+    snapshot.  The instrumentation is applied before any thread starts."""
+    import threading
+
+    from repro_torch.analysis.racecheck import (LockRegistry,
+                                                instrument_admission_queue,
+                                                instrument_pump,
+                                                instrument_server)
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.stream import AdmissionQueue, IngestPump
+
+    label = "analysis serving"
+    t0 = time.perf_counter()
+    feed = SyntheticFeed(cands, seed=5, ticks=INGEST_PRIME)
+    cfg = EngineConfig()
+    server = cfg.build_server(device=DEVICE, bucket_sizes=BUCKETS)
+    ing = cfg.build_ingestor(feed, window=INGEST_WINDOW, name="analysis",
+                             device=DEVICE)
+    arch = ing.prime()
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    queue = AdmissionQueue(server, lambda: ing.archive, max_wait_s=MAX_WAIT_S)
+    target = INGEST_PRIME + ANALYSIS_TICKS
+    fed = threading.Event()
+
+    def collect() -> None:
+        if feed.ticks < target:
+            feed.run(1)
+        else:
+            fed.set()
+
+    pump = IngestPump(ing, collect, period=0.0)
+    rng = np.random.default_rng(29)
+    batches = [mixed_requests(rng, B_FULL)
+               for _ in range(ANALYSIS_CLIENTS + ANALYSIS_DIRECT)]
+    reg = LockRegistry()
+    try:
+        instrument_server(reg, server)
+        instrument_admission_queue(reg, queue)
+        instrument_pump(reg, pump)
+        v0, a0 = arch.version, arch.appends
+        errors, direct, latency = [], [], []
+
+        def client(reqs) -> None:
+            try:
+                tickets = [queue.submit(r) for r in reqs]
+                for t in tickets:
+                    t.result(timeout=120.0)
+            except Exception as err:  # noqa: BLE001 - raised below
+                errors.append(err)
+
+        def caller(calls) -> None:
+            try:
+                for reqs in calls:
+                    direct.append(server.serve(ing.archive.snapshot(), reqs))
+            except Exception as err:  # noqa: BLE001 - raised below
+                errors.append(err)
+
+        def run() -> None:
+            queue.start()
+            try:
+                with pump:
+                    threads = [threading.Thread(target=client, args=(b,))
+                               for b in batches[:ANALYSIS_CLIENTS]]
+                    threads.append(threading.Thread(
+                        target=caller, args=(batches[ANALYSIS_CLIENTS:],)))
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join(120.0)
+                    latency.extend(queue.stats.latency.quantile(q) * 1e3
+                                   for q in (0.5, 0.9))
+                    if not fed.wait(120.0):
+                        fail(f"{label}: the pump fed {feed.ticks - INGEST_PRIME}"
+                             f" of {ANALYSIS_TICKS} ticks in 120 s")
+                    deadline = time.monotonic() + 60.0
+                    while (pump.ticks_pumped < ANALYSIS_TICKS
+                           and time.monotonic() < deadline):
+                        time.sleep(0.001)
+                    if any(t.is_alive() for t in threads):
+                        fail(f"{label}: a serving thread did not finish")
+            finally:
+                queue.stop()
+            torch.cuda.synchronize()
+
+        ticks = held_ticks(torch)
+        t0 = time.perf_counter()
+        with recorded_serves(server) as rec, ticks:
+            _, launches, err = add(label, run)
+        run_s = time.perf_counter() - t0
+        if errors:
+            raise errors[0]
+        reports, cycles, edges = reg.race_reports(), reg.cycles(), reg.edges()
+    finally:
+        reg.close()
+    if reports or cycles:
+        fail(f"{label}: " + "; ".join(
+            [r.format() for r in reports]
+            + ["lock-order cycle " + " -> ".join(c) for c in cycles]))
+    if pump.errors:
+        fail(f"{label}: the pump counted {pump.errors} errors: "
+             f"{pump.last_error!r}")
+    advanced = dict(ticks_pumped=pump.ticks_pumped,
+                    appends=arch.appends - a0, versions=arch.version - v0)
+    if set(advanced.values()) != {ANALYSIS_TICKS}:
+        fail(f"{label}: pumped, appended and versions advanced differ: "
+             f"{advanced} (want {ANALYSIS_TICKS} each)")
+    b3_err = ticks.check(label)
+    if not ticks.launches == len(ticks.calls) == ANALYSIS_TICKS:
+        fail(f"{label}: B3 launched {ticks.launches} times in "
+             f"{len(ticks.calls)} calls over {ANALYSIS_TICKS} ticks")
+    n_requests = (ANALYSIS_CLIENTS + ANALYSIS_DIRECT) * B_FULL
+    served = sum(len(r) for _, _, r in rec.calls)
+    st = queue.stats
+    if not (served == n_requests and st.submitted == st.served
+            == ANALYSIS_CLIENTS * B_FULL and st.failed == 0
+            and len(direct) == ANALYSIS_DIRECT):
+        fail(f"{label}: served {served} of {n_requests} requests "
+             f"(queue submitted {st.submitted}, served {st.served}, failed "
+             f"{st.failed}; {len(direct)} direct calls)")
+    ties = mismatched = 0
+    for snap, reqs, recs in rec.calls:
+        check_pools(snap.host, [reqs], [recs], f"{label} v{snap.version}")
+        cmp = compare_with_cpu(torch, server, snap, snap.host, [reqs],
+                               [recs], f"{label} v{snap.version}")
+        ties += cmp["ties"]
+        mismatched += cmp["tie_mismatches"]
+    versions = [snap.version for snap, _, _ in rec.calls]
+    return dict(
+        K=len(arch), capacity=INGEST_WINDOW, prime_columns=INGEST_PRIME,
+        prime_s=prime_s, run_s=run_s, **advanced, serve_calls=len(rec.calls),
+        drains=st.drains, requests=n_requests,
+        versions_served=dict(min=min(versions), max=max(versions),
+                             distinct=len(set(versions)),
+                             below_final=sum(v < arch.version
+                                             for v in versions)),
+        ticket_ms={"p50": latency[0], "p90": latency[1]},
+        edges=[list(e) for e in edges], race_reports=0, cycles=0,
+        launches={**launches, "stats_update": ticks.launches},
+        max_abs_err={**err, "stats_update": b3_err}, ties=ties,
+        tie_mismatches=mismatched)
+
+
+def instrumented_replay(torch, market, col, add) -> dict:
+    """The operator phase's faulty schedule, cut to ``ANALYSIS_CYCLES``
+    cycles, with the server, the fault proxy, the admission queue and the
+    CMDB instrumented under a fresh ``LockRegistry``."""
+    from repro_torch.analysis.racecheck import (LockRegistry,
+                                                instrument_admission_queue,
+                                                instrument_cmdb,
+                                                instrument_fault_server,
+                                                instrument_server)
+    from repro_torch.core.types import ResourceRequest
+    from repro_torch.operator import ChaosSchedule
+
+    label = "analysis replay"
+    reg = LockRegistry()
+
+    def instrument(replay) -> None:
+        instrument_server(reg, replay.server)
+        instrument_fault_server(reg, replay.faulty)
+        instrument_admission_queue(reg, replay.queue)
+        instrument_cmdb(reg, replay.operator.cmdb)
+
+    reqs = [ResourceRequest(cpus=48.0, weight=0.5),
+            ResourceRequest(cpus=24.0, weight=0.8),
+            ResourceRequest(memory_gb=96.0, weight=0.3),
+            ResourceRequest(cpus=SIM_POOL_CPUS, weight=0.5)]
+    try:
+        report, _, stats = op_replay(
+            torch, label, ANALYSIS_CYCLES, ChaosSchedule(**OP_FAULTS), reqs,
+            add, before_run=instrument, market=market, collector=col)
+        reports, cycles, edges = reg.race_reports(), reg.cycles(), reg.edges()
+    finally:
+        reg.close()
+    if reports or cycles:
+        fail(f"{label}: " + "; ".join(
+            [r.format() for r in reports]
+            + ["lock-order cycle " + " -> ".join(c) for c in cycles]))
+    # the cut ends three cycles after the first reclaim (cycle 9, inside
+    # the collector's outage of cycles 9-10, when the operator holds its
+    # pools), so it is not held to a reaction
+    replay_gates(label, report, outages=True, react=False)
+    return dict(cycles=ANALYSIS_CYCLES, K=stats["K"],
+                rerecommendations=report.rerecommendations,
+                migrations_planned=report.migrations_planned,
+                failed_drains=report.failed_drains,
+                failed_tickets=report.failed_tickets,
+                stale_cycles=report.stale_cycles,
+                interruptions=report.interruptions,
+                edges=[list(e) for e in edges], race_reports=0,
+                lock_cycles=0, serve_calls=stats["serve_calls"],
+                ties=stats["ties"], tie_mismatches=stats["tie_mismatches"],
+                b3_launches=stats["b3_launches"],
+                b3_max_abs_err=stats["b3_max_abs_err"],
+                launches=stats["launches"], run_s=stats["run_s"])
+
+
+def negative_controls() -> dict:
+    """Each on a fresh registry: an off-lock write of a guarded
+    ``ServeStats`` counter of an instrumented server gives one report
+    naming the field, and two locks taken in opposite orders by two
+    threads, one after the other, give one cycle.  A sanitizer that
+    reports nothing would otherwise pass the gates above vacuously."""
+    import threading
+
+    from repro_torch.analysis.racecheck import LockRegistry, instrument_server
+    from repro_torch.serve import BatchServer
+    reg = LockRegistry()
+    try:
+        server = BatchServer(device=DEVICE, bucket_sizes=BUCKETS)
+        instrument_server(reg, server)
+
+        def unguarded() -> None:
+            server.stats.requests += 1
+        t = threading.Thread(target=unguarded, name="unguarded-writer")
+        t.start()
+        t.join(10.0)
+        reports = reg.race_reports()
+    finally:
+        reg.close()
+    if not (len(reports) == 1 and reports[0].obj == "ServeStats"
+            and reports[0].attr == "requests"
+            and reports[0].thread == "unguarded-writer"):
+        fail("negative control: an off-lock ServeStats.requests write gave "
+             f"{[r.format() for r in reports]}, not one report naming it")
+    reg = LockRegistry()
+    a = reg.wrap(threading.Lock(), "control.a")
+    b = reg.wrap(threading.Lock(), "control.b")
+
+    def take(first, second) -> None:
+        with first:
+            with second:
+                pass
+    for pair in ((a, b), (b, a)):
+        t = threading.Thread(target=take, args=pair)
+        t.start()
+        t.join(10.0)
+    cycles = reg.cycles()
+    if len(cycles) != 1 or reg.race_reports():
+        fail(f"negative control: opposite lock orders gave cycles {cycles}, "
+             "not one")
+    return dict(report=reports[0].format(),
+                cycle=" -> ".join(cycles[0]))
+
+
+def analysis_phase(torch, cands, market, col) -> tuple:
+    """The port's spotlint and race sanitizer on the card (see the module
+    docstring): the lint gate, live ingestion and threaded serving at K =
+    32768 under a ``LockRegistry``, the instrumented faulty replay at K =
+    6400, and the negative controls.  B1's and B2's counters are set to 0
+    before each serving segment and read after it (``launch_segment``),
+    B3's around the pump's and the replay's ticks; every launch is held bit
+    for bit against its plain version."""
+    t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
+
+    launches = {"score_fuse": 0, "pool_scan": 0, "stats_update": 0}
+    err = dict.fromkeys(launches, 0.0)
+
+    def add(label, fn, *, sharded=False):
+        out, n, e = launch_segment(torch, label, fn, sharded=sharded)
+        for k in n:
+            launches[k] += n[k]
+            err[k] = max(err[k], e[k])
+        return out, n, e
+
+    lint = lint_gate()
+    lap("lint")
+    serving = pumped_serving(torch, cands, add)
+    launches["stats_update"] += serving["launches"]["stats_update"]
+    err["stats_update"] = max(err["stats_update"],
+                              serving["max_abs_err"]["stats_update"])
+    lap("pumped serving")
+    replay = instrumented_replay(torch, market, col,
+                                 lambda *a, **k: add(*a, **k)[:2])
+    launches["stats_update"] += replay["b3_launches"]
+    err["stats_update"] = max(err["stats_update"], replay["b3_max_abs_err"])
+    lap("instrumented replay")
+    controls = negative_controls()
+    lap("negative controls")
+    for name, k in launches.items():
+        if k == 0:
+            fail(f"analysis phase: the path never launched kernel {name}")
+    report = dict(lint=lint, serving=serving, replay=replay,
+                  controls=controls, launches=launches, max_abs_err=err,
+                  seconds=laps, phase_s=time.perf_counter() - t_start)
     return launches, report
 
 
@@ -3881,6 +4260,26 @@ def main() -> None:
     for name in ("pool_scan", "stats_update"):
         timings[name]["operator_phase"] = dict(
             launches=op_launches[name], max_abs_err=op["max_abs_err"][name])
+
+    an_launches, an = analysis_phase(torch, cands, *sim_world_after)
+    print("analysis phase: " + json.dumps(an))
+    sv, rp = an["serving"], an["replay"]
+    print(f"analysis phase ({card}): {an['phase_s']:.1f} s (budget "
+          f"{ANALYSIS_BUDGET_S:.0f} s): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in an["seconds"].items())
+          + f"; spotlint 0 findings in {an['lint']['files']} files in "
+          f"{an['lint']['s']:.2f} s")
+    print(f"analysis phase ({card}): {sv['ticks_pumped']} ticks pumped at "
+          f"K = {sv['K']} while {sv['requests']} requests were served in "
+          f"{sv['serve_calls']} calls ({sv['drains']} drains) at "
+          f"{sv['versions_served']['distinct']} versions; tickets p50 "
+          f"{sv['ticket_ms']['p50']:.3f} ms, p90 {sv['ticket_ms']['p90']:.3f}"
+          f" ms; acquisition-order edges {sv['edges']}; the replay's "
+          f"{rp['edges']}; 0 race reports, 0 cycles; controls: "
+          f"{an['controls']['report']}; cycle {an['controls']['cycle']}")
+    for name in ("score_fuse", "pool_scan", "stats_update"):
+        timings[name]["analysis_phase"] = dict(
+            launches=an_launches[name], max_abs_err=an["max_abs_err"][name])
 
     el_launches, el = elastic_phase(torch, *sim_world_after)
     del sim_world_after

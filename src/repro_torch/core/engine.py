@@ -235,7 +235,8 @@ class RecommendationEngine:
         if s_impl == "tiled":
             stats = archive.score_stats() if archive is not None else None
             uniq_masks, uniq_inv = _dedup_masks(batch.masks)
-            uniq_masks = torch.as_tensor(uniq_masks, device=dev)
+            uniq_masks = torch.as_tensor(uniq_masks, dtype=torch.bool,
+                                         device=dev)
         else:
             stats = uniq_masks = uniq_inv = None
         if archive is not None:
@@ -249,9 +250,11 @@ class RecommendationEngine:
             t3, prices, vcpus, memory_gb = (
                 f32(x, dev) for x in (cands.t3, cands.prices, cands.vcpus,
                                       cands.memory_gb))
-        on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        on = lambda x, dtype=torch.float32: torch.as_tensor(  # noqa: E731
+            x, dtype=dtype, device=dev)
         outs = _fused_recommend_batch(
-            t3, prices, vcpus, memory_gb, on(batch.masks), on(batch.use_cpus),
+            t3, prices, vcpus, memory_gb, on(batch.masks, torch.bool),
+            on(batch.use_cpus, torch.bool),
             on(batch.weights), on(batch.lams), on(batch.amounts), stats,
             uniq_masks, uniq_inv, pool_impl=impl, score_impl=s_impl)
         return tuple(x.cpu().numpy() for x in outs)
@@ -356,7 +359,7 @@ class RecommendationEngine:
         out = score_fuse_lib.score_fuse_batch(
             torch.stack(tuple(archive.score_stats())), archive.prices,
             archive.vcpus, archive.memory_gb, mask,
-            torch.tensor([use_cpus], device=dev), one(amount), one(lam),
-            one(weight), mask, [0])
+            torch.tensor([use_cpus], dtype=torch.bool, device=dev),
+            one(amount), one(lam), one(weight), mask, [0])
         return tuple(x[0].cpu().numpy() for x in (out.comb, out.avail,
                                                   out.cost))

@@ -268,7 +268,7 @@ def score_fuse_batch(stats, prices, vcpus, memory_gb, masks, use_cpus,
     B, U = masks.shape[0], uniq_masks.shape[0]
     if K < 1 or B < 1:
         raise ValueError("score_fuse_batch needs K >= 1 and B >= 1")
-    inv = np.asarray(torch.as_tensor(inv).cpu())
+    inv = np.asarray(torch.as_tensor(inv, dtype=torch.int64).cpu())
     if inv.shape != (B,) or inv.min() < 0 or inv.max() >= U:
         raise ValueError(f"inv must be {B} indices into {U} unique masks")
     inv = torch.as_tensor(inv, dtype=torch.int32).to(dev)

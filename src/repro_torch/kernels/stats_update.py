@@ -268,9 +268,11 @@ def stats_update(moments: StreamMoments, y_new, y_old, y_first, y_last,
         raise TypeError("bf16 columns take no scale: only int8 codes are "
                         "decoded with one")
     else:
+        # int8 codes keep the caller's dtype: the check below holds them to
+        # int8 rather than casting whatever came
         cols = tuple((y if isinstance(y, torch.Tensor)
-                      else torch.from_numpy(np.ascontiguousarray(y))).to(dev)
-                     for y in cols)
+                      else torch.from_numpy(np.ascontiguousarray(y))  # spotlint: disable=SPL002
+                      ).to(dev) for y in cols)
         scale = f32(scale, dev)
         col_dtype = (torch.int8,)
         _build.expect(scale, "scale", (K,), (torch.float32,), dev)

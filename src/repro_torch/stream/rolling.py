@@ -263,7 +263,8 @@ class RollingDeviceArchive:
         gathered on the device from the ring and memoised per version."""
         if self._t3_logical is None:
             order = (self._start + np.arange(self._len)) % self.capacity
-            stored = self._buf[torch.as_tensor(order, device=self.device)].T
+            stored = self._buf[torch.as_tensor(order, dtype=torch.int64,
+                                               device=self.device)].T
             self._t3_logical = compression.dequantize_window(
                 stored, self.scale, self.precision).contiguous()
         return self._t3_logical

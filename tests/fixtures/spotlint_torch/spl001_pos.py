@@ -1,0 +1,34 @@
+"""Deliberate SPL001 violation: ``RollingDeviceArchive.append`` with the
+statistics update (kernel B3) moved after the in-place slot write.
+
+``y_old`` is a view of the ring slot; once ``self._buf[slot] = codes``
+has run it holds the new column, so B3 would evict the wrong one.
+Expected: exactly one SPL001 finding (the ``y_old`` read in the B3 call).
+"""
+from repro_torch.kernels import stats_update as stats_update_lib
+from repro_torch.parallel import compression
+
+
+class RollingDeviceArchive:
+    def append(self, column):
+        col = column
+        evict = self._len == self.capacity
+        new_len = self._len if evict else self._len + 1
+        slot = self._pos
+        new_start = ((slot + 1) % self.capacity if evict
+                     else (slot + 1 - new_len) % self.capacity)
+        codes, n_clip = compression.quantize_column(col, self.scale,
+                                                    self.precision)
+        codes = codes.to(self.device)
+        y_old = self._buf[slot]
+        y_first = codes if new_start == slot else self._buf[new_start]
+        self._buf[slot] = codes
+        self._moments, stats = stats_update_lib.stats_update(
+            self._moments, codes, y_old, y_first, codes, new_len, evict,
+            scale=self.scale if self.precision == "int8" else None)
+        self._pos = (slot + 1) % self.capacity
+        self._len = new_len
+        self._stats = stats
+        self.version += 1
+        self.appends += 1
+        return self

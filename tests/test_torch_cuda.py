@@ -358,6 +358,89 @@ def test_simulated_world_on_the_card_matches_cpu(cuda):
     _hold_against_cpu(cuda, server, snap, snap.host, REQS, got)
 
 
+def test_pump_and_admission_worker_on_the_card_under_racecheck(cuda):
+    """Live ingestion and threaded serving together on the card under the
+    port's race sanitizer: an ``IngestPump`` absorbs 24 ticks (B3 once a
+    tick) while the admission worker drains 4 x 7 requests from 4 client
+    threads and a direct caller serves twice; no race report, no lock-order
+    cycle, every pool equal to a CPU run on the snapshot its serve read (F1
+    ties only)."""
+    import threading
+    from repro_torch.analysis.racecheck import (LockRegistry,
+                                                instrument_admission_queue,
+                                                instrument_pump,
+                                                instrument_server)
+    from repro_torch.stream import IngestPump
+    market = SpotMarket(Catalog(seed=11, n_regions=2), seed=11)
+    targets = [(t.name, r, az) for t, r, az in market.pool_keys]
+    col = DataCollector(SPSQueryService(market, n_accounts=800), targets,
+                        CollectorConfig(ring_capacity=48, ring_dtype="int8"))
+    col.run(24)
+    ing = LiveIngestor(col, window=48, name="pumped", device=cuda)
+    ing.prime()
+    server = BatchServer(config=EngineConfig(score_impl="tiled"),
+                         device=cuda, bucket_sizes=(1, 8, 16))
+    queue = AdmissionQueue(server, lambda: ing.archive, max_wait_s=0.005)
+    target = col.ticks + 24
+
+    def collect():
+        if col.ticks < target:
+            col.run(1)
+
+    pump = IngestPump(ing, collect)
+    served, lock = [], threading.Lock()
+    real_serve = server.serve
+
+    def serve(archive, requests, **kw):
+        recs = real_serve(archive, requests, **kw)
+        with lock:
+            served.append((archive, list(requests), recs))
+        return recs
+
+    server.serve = serve
+    reg = LockRegistry()
+    try:
+        instrument_server(reg, server)
+        instrument_admission_queue(reg, queue)
+        instrument_pump(reg, pump)
+        tsu.stats_update.launches = 0
+        tsf.score_fuse_batch.launches = tps.pool_scan.launches = 0
+        v0 = ing.version
+        queue.start()
+        try:
+            with pump:
+                clients = [threading.Thread(target=lambda: [
+                    t.result(timeout=120.0)
+                    for t in [queue.submit(r) for r in REQS]])
+                    for _ in range(4)]
+                clients.append(threading.Thread(target=lambda: [
+                    server.serve(ing.archive.snapshot(), REQS[:2])
+                    for _ in range(2)]))
+                for t in clients:
+                    t.start()
+                for t in clients:
+                    t.join(120.0)
+                deadline = time.monotonic() + 60.0
+                while ing.version < v0 + 24 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+        finally:
+            queue.stop()
+        torch.cuda.synchronize()
+        assert not any(t.is_alive() for t in clients)
+        assert reg.race_reports() == [] and reg.cycles() == []
+        assert reg.problems() == []
+    finally:
+        reg.close()
+        del server.serve
+    assert pump.errors == 0 and pump.ticks_pumped == ing.version - v0 == 24
+    assert tsu.stats_update.launches == 24
+    assert tsf.score_fuse_batch.launches > 0 and tps.pool_scan.launches > 0
+    assert queue.stats.served == 4 * len(REQS)
+    assert sum(len(r) for _, _, r in served) == 4 * len(REQS) + 4
+    for snap, reqs, got in served:
+        _hold_against_cpu(cuda, server, snap, snap.host, reqs, got)
+
+
 def test_load_harness_sheds_at_twice_capacity_on_the_card(cuda):
     """The load harness at 2x the card's measured capacity with
     ``shed_depth``: it sheds from a warmed pool cache, every ledger

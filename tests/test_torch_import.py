@@ -75,7 +75,10 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.multicloud.federation",
            "repro_torch.multicloud.scenario", "repro_torch.multicloud.compare",
            "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
-           "repro_torch.elastic", "repro_torch.elastic.cluster"]
+           "repro_torch.elastic", "repro_torch.elastic.cluster",
+           "repro_torch.analysis", "repro_torch.analysis.framework",
+           "repro_torch.analysis.cli", "repro_torch.analysis.racecheck",
+           "repro_torch.analysis.rules"]
 
 #: names the import check also reaches, beside the modules
 NAMES = [("repro_torch.parallel.compression", n)
