@@ -4,8 +4,10 @@ archive paths, the paper's simulated-cloud pipeline (collector, ingestion,
 admission, baselines, load harness), the closed-loop operator and the
 region-sharded multi-vendor world, spot-elastic training with checkpoints
 and the int8 gradient exchange, LM serving (DeepSeek-V2-Lite,
-RWKV6-7B, RecurrentGemma-2B), and qwen2-0.5b's full-sequence forward and
-training step, on one NVIDIA GPU.
+RWKV6-7B, RecurrentGemma-2B), the encoder-decoder and vision-prefix
+families (seamless-m4t-medium, llava-next-mistral-7b) served and run
+forward, and qwen2-0.5b's full-sequence forward and training step, on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -210,6 +212,35 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    route's, at prefill and at a decode step.  Prints prefill and decode
    times, tokens/s, a profiled decode step, and the kernels' times and
    bounds.  Each model is freed before the next.
+6b. Prefix phase (``prefix_phase``, one per entry of ``PREFIX_ARCHS``):
+   ``seamless-m4t-medium`` (12 encoder + 12 decoder layers, d_model 1024,
+   16 heads of 64, vocab 256206; 0.98 B parameters) and
+   ``llava-next-mistral-7b`` (32 layers, d_model 4096, 32 query heads over
+   8 KV heads of 128; 7.24 B) at full width and depth, seeded bf16 drawn
+   on the card, ``use_pallas=True``; their frontends are stubs fed seeded
+   embeddings, as in the reference.  Serving: 8 (seamless: 1536 frames
+   each) or 4 (llava: 2880 patches each) prompts of 128 tokens through
+   ``Model.prefill`` and 31 greedy ``decode_step``s; B4 must launch 0
+   times (a cached prefill takes the plain attend), the cross cache the
+   seamless prefill wrote must be unchanged bit for bit after the decode
+   steps, greedy tokens are compared with the plain route
+   (``use_pallas=False``, reported), and each layer's update (seamless:
+   the encoder's and the decoder's) against the plain route's within
+   ``LAYER_TOL`` at prefill and at a decode step.  Forward
+   (``train=False``): seamless 4 x 1024 tokens over 1536 frames, llava
+   ``make_pipeline(cfg, 4096, 2)``'s first batch (2880 patches + 1216
+   tokens); B4 must launch once per decoder layer (12, 32) with the
+   counter reset just before and read just after, and is held against its
+   plain version on the first layer's captured q, k, v and a 77-row prefix
+   of them (one bf16 ulp or ``FLASH_P_ULP`` * max|v|).  Within
+   ``FWD_LAYER_TOL``: llava's layers against the plain route and float32;
+   seamless's encoder layers against the plain route and each decoder
+   layer's self-attention (where B4 runs) against the plain route's and
+   float32 (the whole decoder layers are recorded: their cross-attention
+   over 1536 frames amplifies rounding on either route).  Prints prefill
+   ms, decode p50 / p90 and tokens/s, forward p50 / p90 over 3 calls, B4's
+   device ms at the two shapes beside its bound and SDPA's, peak memory,
+   and the phase's seconds against its 120 s budget.
 7. Forward phase: ``qwen2-0.5b`` at full width and depth (24 layers,
    d_model 896, 14 query heads over 2 KV heads of 64; 494 M parameters
    drawn on the card), ``Model.forward(train=False)`` with
@@ -439,6 +470,20 @@ FWD_LAYER_TOL = 0.1
 # B4 forward's logits on the same batch and parameters, relative
 TRAIN_CE_TOL = 1e-2
 
+# prefix phase: the encoder-decoder (audio) and vision-prefix families at
+# their published widths and depths, their frontends stubs fed seeded
+# embeddings (1536 frames, 2880 patches); served (prefill + LM_NEW - 1
+# decode steps of LM_PROMPT-token prompts) and run forward
+PREFIX_ARCHS = ("seamless-m4t-medium", "llava-next-mistral-7b")
+PREFIX_SERVE_BATCH = {"seamless-m4t-medium": 8, "llava-next-mistral-7b": 4}
+# forward (batch, positions): seamless 1024 text tokens over its frames,
+# llava make_pipeline's 4096 positions (2880 patches + 1216 tokens)
+PREFIX_FWD = {"seamless-m4t-medium": (4, 1024), "llava-next-mistral-7b": (2, 4096)}
+PREFIX_FWD_CALLS = 3
+PREFIX_BUDGET_S = 120.0
+# B4's plain version takes ~0.1 s a call at llava's shape: timed over fewer
+PREFIX_PLAIN_REPS = 5
+
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
 # rate outside the tensor cores, dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
@@ -581,20 +626,21 @@ def profiled(fn, calls: int, tries: int = 3) -> dict:
 
 
 def time_ms(fn, names: tuple[str, ...] | None, per_name: dict | None = None,
-            matched: dict | None = None):
+            matched: dict | None = None, reps: int = TIME_REPS):
     """Median per-call CUDA-event time, and the per-call device time of the
     kernels whose names contain one of ``names`` (all kernels if ``None``)
     from a ``torch.profiler`` trace; the latter is ``None`` if the profiler
     records no device time.  ``per_name``, if given, receives each of
     ``names``' own per-call device time; ``matched`` the full name of every
     device item counted, with its launches and device ms a call and the
-    share of its launches the trace recorded (``profiled``)."""
+    share of its launches the trace recorded (``profiled``).  ``reps``
+    calls are timed each way."""
     import torch
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     pairs = []
-    for _ in range(TIME_REPS):
+    for _ in range(reps):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         a.record()
         fn()
@@ -604,7 +650,7 @@ def time_ms(fn, names: tuple[str, ...] | None, per_name: dict | None = None,
     call_ms = float(np.median([a.elapsed_time(b) for a, b in pairs]))
     prof_ms = None
     try:
-        items = profiled(fn, TIME_REPS)
+        items = profiled(fn, reps)
     except RuntimeError as err:   # no CUPTI on this machine: events only
         print(f"profiler unavailable ({err}); kernel time from events")
         return call_ms, None
@@ -3272,19 +3318,27 @@ def bf16_closeness(got, want, floor=None):
     return int(far.sum()), int(bad.sum()), float(d.max())
 
 
-def generate(torch, model, params, prompt, new: int):
+def generate(torch, model, params, prompt, new: int, extra=None, watch=None):
     """Greedy serving: prefill, then ``new - 1`` decode steps.  Returns the
     (B, new) tokens, the (B, new, V) float32 logits they were picked from,
     the prefill time and the per-step decode times (host clock around work
-    that ends in a synchronise)."""
+    that ends in a synchronise).  ``extra`` joins the prefill's batch (a
+    frontend's ``frames`` or ``prefix_embeds``; the patches take positions
+    before the prompt's); ``watch(stage, cache)``, if given, sees the cache
+    after the prefill (``"prefill"``) and after the last step (``"end"``)."""
+    extra = extra or {}
     B, S = prompt.shape
+    if "prefix_embeds" in extra:
+        S += extra["prefix_embeds"].shape[1]
     cache = model.init_cache(B, S + new)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    logits, cache = model.prefill(params, {"tokens": prompt, **extra}, cache)
     tok = logits[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     prefill_ms = (time.perf_counter() - t0) * 1e3
+    if watch is not None:
+        watch("prefill", cache)
     toks, rows, step_ms = [tok], [logits[:, -1].float()], []
     for i in range(new - 1):
         t0 = time.perf_counter()
@@ -3294,6 +3348,8 @@ def generate(torch, model, params, prompt, new: int):
         step_ms.append((time.perf_counter() - t0) * 1e3)
         toks.append(tok)
         rows.append(logits[:, -1].float())
+    if watch is not None:
+        watch("end", cache)
     return torch.cat(toks, 1), torch.stack(rows, 1), prefill_ms, step_ms
 
 
@@ -3362,7 +3418,7 @@ def _layer_stack(cfg, params, cache):
 
 
 def layerwise(torch, cfg, ref_cfg, params, prompt, *, cached=True,
-              exact=None):
+              exact=None, prefix=None):
     """Each layer's update ``out - in`` through ``cfg`` (kernels) and
     ``ref_cfg`` (the plain route) on the same input and the same starting
     cache, at prefill and at the first decode step, the stack advancing on
@@ -3371,12 +3427,15 @@ def layerwise(torch, cfg, ref_cfg, params, prompt, *, cached=True,
     no decode step, and each layer is also run in float32 (parameters and
     input upcast, the plain route); each route's distance from that is
     recorded in ``exact`` (|update - update_f32| / |update_f32|, per
-    layer: ``cfg``'s, then ``ref_cfg``'s).  Returns the per-layer
-    |update_cfg - update_ref| / |update_cfg| (Frobenius norms) at prefill
-    (or the forward) and at the decode step (empty without a cache)."""
+    layer: ``cfg``'s, then ``ref_cfg``'s).  ``prefix`` (B, P, D) goes in
+    front of the prompt's embeddings (the vision frontend's patches).
+    Returns the per-layer |update_cfg - update_ref| / |update_cfg|
+    (Frobenius norms) at prefill (or the forward) and at the decode step
+    (empty without a cache)."""
     from repro_torch.models import lm
     from repro_torch.models.param import tree_map
-    B, S = prompt.shape
+    B = prompt.shape[0]
+    S = prompt.shape[1] + (0 if prefix is None else prefix.shape[1])
     cache = lm.init_cache(cfg, B, S + 1, prompt.device) if cached else None
     stack = _layer_stack(cfg, params, cache)
 
@@ -3403,7 +3462,7 @@ def layerwise(torch, cfg, ref_cfg, params, prompt, *, cached=True,
         return x, devs
 
     with torch.no_grad():
-        x = lm._embed_inputs(cfg, params, prompt, None)
+        x = lm._embed_inputs(cfg, params, prompt, prefix)
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         if not cached:
             return walk(x, pos, None, None, False)[1], []
@@ -3813,12 +3872,13 @@ def flash_cost(B, Sq, Sk, H, KV, D):
     return nbytes, 4 * B * H * (Sq * (Sq + 1) // 2) * D
 
 
-def hold_flash(torch, captured):
+def hold_flash(torch, captured, prefixes=FLASH_PREFIXES, seeded=True):
     """B4 against its plain version on the first layer's q, k, v as
-    captured, on a ragged prefix (S = 4000) and a short one (S = 77) of
-    them, and on seeded inputs with G = 1, D = 128, S = 1000: every output
-    within one bf16 ulp, or within ``FLASH_P_ULP`` * max|v|.  The count
-    beyond the B7/B8 contract (one ulp or 1e-3 * max|plain|) is recorded."""
+    captured, on prefixes of them (``prefixes``: a ragged S = 4000 and a
+    short S = 77 by default), and with ``seeded`` on seeded inputs with
+    G = 1, D = 128, S = 1000: every output within one bf16 ulp, or within
+    ``FLASH_P_ULP`` * max|v|.  The count beyond the B7/B8 contract (one
+    ulp or 1e-3 * max|plain|) is recorded."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = captured
     D = q.shape[-1]
@@ -3826,13 +3886,15 @@ def hold_flash(torch, captured):
     on = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
         DEVICE).to(torch.bfloat16)
     cases = [("captured", (q, k, v), D ** -0.5)]
-    for S in FLASH_PREFIXES:
+    for S in prefixes:
         cases.append((f"S={S}", tuple(t[:, :S].contiguous() for t in (q, k, v)),
                       D ** -0.5))
-    cases.append(("G=1, D=128, S=1000",
-                  (on(rng.standard_normal((2, 1000, 8, 128))),
-                   on(rng.standard_normal((2, 1000, 8, 128))),
-                   on(rng.standard_normal((2, 1000, 8, 128)))), 128 ** -0.5))
+    if seeded:
+        cases.append(("G=1, D=128, S=1000",
+                      (on(rng.standard_normal((2, 1000, 8, 128))),
+                       on(rng.standard_normal((2, 1000, 8, 128))),
+                       on(rng.standard_normal((2, 1000, 8, 128)))),
+                      128 ** -0.5))
     checks, max_err = {}, 0.0
     for label, args, scale in cases:
         got = fa.flash_attention(*args, scale=scale)
@@ -3854,10 +3916,10 @@ def hold_flash(torch, captured):
     return checks, max_err
 
 
-def flash_times(torch, captured):
+def flash_times(torch, captured, plain_reps: int = TIME_REPS):
     """B4 alone on the captured q, k, v: device and call time, the plain
-    version's, scaled_dot_product_attention's (timed only: the port never
-    calls it) and the bound."""
+    version's (over ``plain_reps`` calls), scaled_dot_product_attention's
+    (timed only: the port never calls it) and the bound."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = captured
     B, S, H, D = q.shape
@@ -3865,7 +3927,8 @@ def flash_times(torch, captured):
     call_ms, dev_ms = time_ms(lambda: fa.flash_attention(q, k, v, scale=scale),
                               ("flash_kernel",))
     plain_call_ms, plain_dev_ms = time_ms(
-        lambda: fa.flash_attention(q, k, v, scale=scale, backend="torch"), None)
+        lambda: fa.flash_attention(q, k, v, scale=scale, backend="torch"), None,
+        reps=plain_reps)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_call_ms, lib_dev_ms = time_ms(
@@ -4029,6 +4092,304 @@ def forward_phase(torch):
     del params, captured, q, k, v
     torch.cuda.empty_cache()
     return {"flash_attention": launches}, {"flash_attention": timing}, report
+
+
+def prefix_inputs(torch, cfg, batch: int, n_text: int, seed: int) -> dict:
+    """Seeded prompt tokens (``batch``, ``n_text``) and the frontend's stub
+    embeddings (``batch``, ``frontend_len``, ``d_model``), standard normal
+    drawn on the card and rounded to bf16: ``frames`` for an
+    encoder-decoder model, ``prefix_embeds`` for the vision prefix."""
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, n_text))).to(DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    emb = torch.randn((batch, cfg.frontend_len, cfg.d_model), generator=g,
+                      device=DEVICE).to(torch.bfloat16)
+    return {"tokens": tokens, "frames" if cfg.encdec else "prefix_embeds": emb}
+
+
+def encdec_layerwise(torch, cfg, ref_cfg, params, batch, *, cached=True,
+                     exact=None):
+    """:func:`layerwise` for an encoder-decoder model: each encoder layer's
+    update, then each decoder layer's, through ``cfg`` (kernels) and
+    ``ref_cfg`` (the plain route) on the same input and starting caches,
+    the stacks advancing on ``cfg``'s outputs; at prefill (self and cross
+    caches written) and at the first decode step, or with ``cached=False``
+    over the full-sequence forward, where each layer also runs in float32
+    (``exact`` as in :func:`layerwise`).  Over the forward, each decoder
+    layer's self-attention (the sublayer where B4 runs) is also held
+    alone on the layer's normed input: its output through ``cfg`` against
+    ``ref_cfg``'s and the float32 one, and ``ref_cfg``'s against the
+    float32 one (``"self_attn"``).  Returns the per-layer deviations
+    ``{"encoder": [...], "decoder": [...], "decode": [...],
+    "self_attn": [...]}``."""
+    from repro_torch.models import attention, encdec, lm
+    from repro_torch.models.param import tree_map
+    tokens, frames = batch["tokens"], batch["frames"]
+    B, S = tokens.shape
+    F = frames.shape[1]
+    caches = encdec.init_cache(cfg, B, S + 1, tokens.device) if cached else None
+    up = lambda p: tree_map(lambda t: t.float(), p)  # noqa: E731
+
+    def dev(xa, xb, x):
+        return float((xa.float() - xb.float()).norm()
+                     / (xa.float() - x.float()).norm())
+
+    def exact_dev(xf, xs, x):
+        return tuple(float((y.float() - x.float() - (xf - x.float())).norm()
+                           / (xf - x.float()).norm()) for y in xs)
+
+    out = {"encoder": [], "decoder": [], "decode": [], "self_attn": []}
+
+    def self_attn(p, x, positions):
+        h = lm.rmsnorm(p["ln1"], x, cfg.rms_eps)
+        ma, mb = (attention.apply_gqa(c, p["self_attn"], h,
+                                      positions=positions)[0].float()
+                  for c in (cfg, ref_cfg))
+        mf = attention.apply_gqa(ref_cfg, up(p["self_attn"]), h.float(),
+                                 positions=positions)[0]
+        rel = lambda a, b: float((a - b).norm() / b.norm())  # noqa: E731
+        return rel(ma, mb), rel(ma, mf), rel(mb, mf)
+    with torch.no_grad():
+        x = frames.to(torch.bfloat16)
+        pos = torch.arange(F, dtype=torch.int32, device=x.device)[None].expand(B, F)
+        for u in range(cfg.enc_layers):
+            p = tree_map(lambda a: a[u], params["enc_unit"])
+            xa = encdec._enc_layer(cfg, p, x, pos)
+            xb = encdec._enc_layer(ref_cfg, p, x, pos)
+            out["encoder"].append(dev(xa, xb, x))
+            if exact is not None and not cached:
+                xf = encdec._enc_layer(ref_cfg, up(p), x.float(), pos)
+                exact.append(exact_dev(xf, (xa, xb), x))
+            x = xa
+        enc_out = lm.rmsnorm(params["enc_norm"], x, cfg.rms_eps)
+
+        def walk(x, positions, index, valid, decode, key):
+            for u in range(cfg.num_layers):
+                p = tree_map(lambda a: a[u], params["dec_unit"])
+                sc = tree_map(lambda a: a[u], caches["self"]) if cached else None
+                cc = tree_map(lambda a: a[u], caches["cross"]) if cached else None
+                xa = encdec._dec_layer(cfg, p, x, positions, enc_out, sc, cc,
+                                       index, valid, decode)
+                xb = encdec._dec_layer(ref_cfg, p, x, positions, enc_out,
+                                       tree_map(torch.clone, sc),
+                                       tree_map(torch.clone, cc), index, valid,
+                                       decode)
+                out[key].append(dev(xa, xb, x))
+                if exact is not None and not cached:
+                    xf = encdec._dec_layer(ref_cfg, up(p), x.float(), positions,
+                                           enc_out.float(), None, None, None,
+                                           None, False)
+                    exact.append(exact_dev(xf, (xa, xb), x))
+                if not cached:
+                    out["self_attn"].append(self_attn(p, x, positions))
+                x = xa
+            return x
+
+        x = lm._embed_inputs(cfg, params, tokens, None)
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        if not cached:
+            walk(x, pos, None, None, False, "decoder")
+            return out
+        x = walk(x, pos, 0, S, False, "decoder")
+        z = lm.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
+        tok = lm._logits(cfg, params, z)[:, -1].argmax(-1, keepdim=True)
+        x1 = lm._embed_inputs(cfg, params, tok, None)
+        pos1 = torch.full((B, 1), S, dtype=torch.int32, device=x.device)
+        walk(x1, pos1, S, S + 1, True, "decode")
+    return out
+
+
+def prefix_phase(torch, arch):
+    """``arch`` (an encoder-decoder or vision-prefix model) at published
+    width and depth: served through ``Model.prefill`` and greedy
+    ``decode_step``s, then its full-sequence forward through B4, each
+    held against the plain route; returns (B4's launches a forward, B4's
+    timing at the forward's shape, the report)."""
+    from dataclasses import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention, get_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
+    cfg = replace(get_config(arch), use_pallas=True)
+    ref_cfg = replace(cfg, use_pallas=False)
+    model = get_model(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    report = dict(arch=arch, encoder_layers=cfg.enc_layers if cfg.encdec else 0,
+                  decoder_layers=cfg.num_layers, params=model.num_params(),
+                  param_bytes_allocated=torch.cuda.memory_allocated(),
+                  init_s=time.perf_counter() - t0, frontend=cfg.frontend,
+                  frontend_len=cfg.frontend_len)
+    print(f"{arch}: {cfg.enc_layers if cfg.encdec else 0} encoder + "
+          f"{cfg.num_layers} decoder layers, {report['params']} parameters, "
+          f"{report['param_bytes_allocated'] / 1e9:.2f} GB allocated, drawn "
+          f"in {report['init_s']:.1f} s")
+
+    # serving: prefill and LM_NEW - 1 greedy decode steps, B4 never launched
+    # (a cached prefill passes kv_valid, which takes the plain attend)
+    B = PREFIX_SERVE_BATCH[arch]
+    extra = prefix_inputs(torch, cfg, B, LM_PROMPT, seed=7)
+    prompt = extra.pop("tokens")
+    cross = {}
+
+    def watch(stage, cache):
+        if cfg.encdec:
+            cross[stage] = {n: t.clone() for n, t in cache["cross"].items()}
+
+    generate(torch, model, params, prompt, 3, extra)          # warm-up
+    fa.flash_attention.launches = 0
+    toks, rows, prefill_ms, step_ms = generate(torch, model, params, prompt,
+                                               LM_NEW, extra, watch)
+    if fa.flash_attention.launches != 0:
+        fail(f"{arch}: serving launched B4 {fa.flash_attention.launches} "
+             "times; the cached prefill and decode take the plain attend")
+    if not bool(torch.isfinite(rows).all()):
+        fail(f"{arch}: non-finite logits while serving")
+    if tuple(toks.shape) != (B, LM_NEW):
+        fail(f"{arch}: generated {tuple(toks.shape)} tokens")
+    if cfg.encdec:
+        # the cross cache is written once by the prefill and only read by
+        # the decode steps
+        unchanged = all(torch.equal(cross["prefill"][n], cross["end"][n])
+                        for n in ("k", "v"))
+        written = all(bool(cross["prefill"][n].any()) for n in ("k", "v"))
+        if not written:
+            fail(f"{arch}: the prefill left the cross cache empty")
+        if not unchanged:
+            fail(f"{arch}: the decode steps rewrote the cross cache")
+        report["cross_cache"] = dict(
+            shape=list(cross["prefill"]["k"].shape), written_at_prefill=written,
+            bit_equal_after_decode=unchanged)
+        del cross
+    ref_toks, _, ref_prefill_ms, ref_step_ms = generate(
+        torch, get_model(ref_cfg, device=DEVICE), params, prompt, LM_NEW, extra)
+    report["serve"] = dict(
+        batch=B, prompt=LM_PROMPT, frontend_positions=cfg.frontend_len,
+        new_tokens=LM_NEW, prefill_ms=prefill_ms,
+        decode_ms={"p50": float(np.percentile(step_ms, 50)),
+                   "p90": float(np.percentile(step_ms, 90)),
+                   "max": float(np.max(step_ms)), "steps": len(step_ms)},
+        decode_tokens_per_s=B / (np.percentile(step_ms, 50) / 1e3),
+        tokens_per_s=B * LM_NEW / ((prefill_ms + sum(step_ms)) / 1e3),
+        b4_launches=fa.flash_attention.launches,
+        plain_route=dict(tokens_agree=int((toks == ref_toks).sum()),
+                         tokens=B * LM_NEW, prefill_ms=ref_prefill_ms,
+                         decode_ms_p50=float(np.percentile(ref_step_ms, 50))))
+    pre_dev = (encdec_layerwise(torch, cfg, ref_cfg, params,
+                                {"tokens": prompt, **extra})
+               if cfg.encdec else
+               dict(zip(("decoder", "decode"), layerwise(
+                   torch, cfg, ref_cfg, params, prompt,
+                   prefix=extra["prefix_embeds"]))))
+    worst = max(v for devs in pre_dev.values() for v in devs)
+    report["serve"]["layerwise_update_rel_dev"] = dict(worst=worst, **pre_dev)
+    if worst > LAYER_TOL:
+        fail(f"{arch}: a layer's update differs between the kernel and plain "
+             f"routes by {worst:.3g} of its norm (> {LAYER_TOL})")
+    del extra, prompt, toks, rows, ref_toks
+    torch.cuda.empty_cache()
+
+    # the forward: B4 on every decoder self-attention
+    Bf, Sf = PREFIX_FWD[arch]
+    if cfg.encdec:
+        batch = prefix_inputs(torch, cfg, Bf, Sf, seed=11)
+    else:
+        batch = make_pipeline(cfg, Sf, Bf, seed=0, device=DEVICE).batch(0)
+        del batch["labels"]
+    captured = []
+
+    def capturing(q, k, v, **kw):
+        if not captured:
+            captured.append((q, k, v))
+        return fa.flash_attention(q, k, v, **kw)
+
+    attention.flash_attention = capturing
+    try:
+        with torch.no_grad():
+            model.forward(params, batch, train=False)
+    finally:
+        attention.flash_attention = fa.flash_attention
+    q, k, v = captured[0]
+    expect = (Bf, Sf, cfg.num_heads, cfg.head_dim)
+    if tuple(q.shape) != expect or k.shape[2] != cfg.num_kv_heads:
+        fail(f"{arch}: B4 was called at {tuple(q.shape)} with {k.shape[2]} KV "
+             f"heads, not {expect} with {cfg.num_kv_heads}")
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        logits, _ = model.forward(params, batch, train=False)
+    torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    if launches != cfg.num_layers:
+        fail(f"{arch}: flash_attention launched {launches} times in one "
+             f"forward, not once per decoder layer ({cfg.num_layers})")
+    if tuple(logits.shape) != (Bf, Sf, cfg.padded_vocab):
+        fail(f"{arch}: forward gave logits of shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: non-finite logits from the forward")
+    del logits
+    forward_ms = []
+    for _ in range(PREFIX_FWD_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model.forward(params, batch, train=False)[0]
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t0) * 1e3)
+        del out
+    p50 = float(np.percentile(forward_ms, 50))
+    text = batch["tokens"].shape[1]
+    report["forward"] = dict(
+        batch=Bf, positions=Sf, text_tokens=text, launches=launches,
+        forward_ms={"p50": p50, "p90": float(np.percentile(forward_ms, 90)),
+                    "calls": PREFIX_FWD_CALLS},
+        tokens_per_s=Bf * text / (p50 / 1e3))
+    checks, max_err = hold_flash(torch, captured[0], prefixes=(RAGGED_S,),
+                                 seeded=False)
+    report["forward"]["kernel_checks"] = checks
+    timing = flash_times(torch, captured[0], plain_reps=PREFIX_PLAIN_REPS)
+    timing.update(max_abs_err=max_err, launches=launches)
+    del captured, q, k, v
+    exact = []
+    if cfg.encdec:
+        # Gated: the encoder's layers against the plain route (B4 never
+        # runs there) and each decoder layer's self-attention, where B4
+        # runs, against the plain route's and float32.  The whole decoder
+        # layer is recorded: its cross-attention (the plain attend in both
+        # routes) attends over 1536 frames with the random init's nearly
+        # hard max and turns the self-attention's rounding into a change of
+        # the layer's update that is larger still with no kernel at all
+        # (the plain route's own layer against float32).
+        fwd_dev = encdec_layerwise(torch, cfg, ref_cfg, params, batch,
+                                   cached=False, exact=exact)
+        del fwd_dev["decode"]
+        gated = fwd_dev["encoder"] + [max(a[:2]) for a in fwd_dev["self_attn"]]
+        enc = cfg.enc_layers
+        fwd_dev.update(encoder_vs_float32=[e[0] for e in exact[:enc]],
+                       layer_b4_vs_float32=[e[0] for e in exact[enc:]],
+                       layer_plain_vs_float32=[e[1] for e in exact[enc:]])
+    else:
+        fwd_dev = {"decoder": layerwise(
+            torch, cfg, ref_cfg, params, batch["tokens"], cached=False,
+            exact=exact, prefix=batch["prefix_embeds"])[0]}
+        fwd_dev.update(b4_vs_float32=[e[0] for e in exact],
+                       plain_vs_float32=[e[1] for e in exact])
+        gated = fwd_dev["decoder"] + fwd_dev["b4_vs_float32"]
+    worst = max(gated)
+    report["forward"]["layerwise_update_rel_dev"] = dict(worst=worst,
+                                                         **fwd_dev)
+    if worst > FWD_LAYER_TOL:
+        fail(f"{arch}: a layer's update through B4 differs from the plain "
+             f"route's or the float32 layer's by {worst:.3g} of its norm "
+             f"(> {FWD_LAYER_TOL})")
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches, timing, report
 
 
 def train_phase(torch, forward_ce: float):
@@ -4315,6 +4676,29 @@ def main() -> None:
         launches.update(lm_launches)
         timings.update(lm_timings)
 
+    prefix_t0 = time.perf_counter()
+    prefix_timings = {}
+    for arch in PREFIX_ARCHS:
+        t0 = time.perf_counter()
+        pf_launches, prefix_timings[arch], pf = prefix_phase(torch, arch)
+        pf["phase_s"] = time.perf_counter() - t0
+        print(f"{arch}: " + json.dumps({**pf, "b4": prefix_timings[arch]}))
+        sv, fw, b4 = pf["serve"], pf["forward"], prefix_timings[arch]
+        print(f"{arch} ({card}): prefill {sv['batch']} x ({sv['prompt']} + "
+              f"{sv['frontend_positions']} {pf['frontend']}) "
+              f"{sv['prefill_ms']:.2f} ms, decode p50 / p90 "
+              f"{sv['decode_ms']['p50']:.2f} / {sv['decode_ms']['p90']:.2f} ms,"
+              f" {sv['decode_tokens_per_s']:.1f} tokens/s; forward "
+              f"{fw['batch']} x {fw['positions']} p50 / p90 "
+              f"{fw['forward_ms']['p50']:.2f} / {fw['forward_ms']['p90']:.2f} "
+              f"ms; B4 {pf_launches} launches a forward at "
+              f"{tuple(b4['shape'])}, KV {b4['kv_heads']}: {b4['ms']:.4f} ms "
+              f"(bound {b4['bound_ms']:.4f} by {b4['bound_by']}, plain "
+              f"{b4['plain_ms']:.3f}, SDPA {b4['library_ms']:.4f}); peak "
+              f"{pf['peak_bytes'] / 1e9:.2f} GB; {pf['phase_s']:.1f} s")
+    prefix_s = time.perf_counter() - prefix_t0
+    print(f"prefix phase: {prefix_s:.1f} s (budget {PREFIX_BUDGET_S:.0f} s)")
+
     t0 = time.perf_counter()
     fwd_launches, fwd_timings, fwd = forward_phase(torch)
     fwd["phase_s"] = time.perf_counter() - t0
@@ -4322,6 +4706,7 @@ def main() -> None:
                                                "kernel_times": fwd_timings}))
     launches.update(fwd_launches)
     timings.update(fwd_timings)
+    timings["flash_attention"]["prefix_phase"] = prefix_timings
     t0 = time.perf_counter()
     train = train_phase(torch, fwd["cross_entropy"])
     train["phase_s"] = time.perf_counter() - t0

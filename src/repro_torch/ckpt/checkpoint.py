@@ -18,7 +18,7 @@ restores in the other: ``restore`` checks only the number of leaves, and
 ``restore`` puts each leaf on the device and dtype of the matching leaf of
 ``like`` (on one process, the counterpart of the reference's
 reshard-on-restore).  Restoring onto a mesh (``shardings=``) needs
-``parallel/sharding.py``, which is not ported yet (ROADMAP A.9).
+``parallel/sharding.py``, which is not ported yet (ROADMAP A.9c).
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ def restore(root: str | pathlib.Path, like: Any, *, step: int | None = None,
     if shardings is not None:
         raise NotImplementedError("restoring onto a mesh (shardings=) needs "
                                   "parallel/sharding.py, which is not ported "
-                                  "yet (ROADMAP A.9)")
+                                  "yet (ROADMAP A.9c)")
     root = pathlib.Path(root)
     if step is None:
         step = latest_step(root)

@@ -6,7 +6,10 @@ decreases.  The numpy draws are the reference's, so a batch's tokens equal
 the reference's for the same (seed, step); they land as int32 tensors on
 the pipeline's device (CUDA unless the caller passes ``device="cpu"``).
 Deterministic per (seed, step): a restart at step N reproduces the stream.
-The audio and vision frontends' embedding stubs are not ported yet.
+The vision and audio frontends are stubs, as in the reference: after the
+token draws, the same generator draws ``prefix_embeds`` (vision) or
+``frames`` (audio) of shape (B, ``frontend_len``, ``d_model``), rounded to
+bf16 as the reference rounds them.
 """
 from __future__ import annotations
 
@@ -31,13 +34,22 @@ class DataConfig:
     d_model: int = 0
 
 
+#: the batch key of each frontend's stub embeddings
+_FRONTEND_KEY = {"vision": "prefix_embeds", "audio": "frames"}
+
+
+def bf16_embeddings(a: np.ndarray, device) -> torch.Tensor:
+    """A float64 host array as a bf16 tensor on ``device``, rounded as the
+    reference's ``jnp.asarray(a, jnp.bfloat16)`` rounds it: to float32
+    first, then to bf16 (the two roundings can land one bf16 ulp from a
+    direct one, and the reference's do)."""
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).to(device)
+
+
 class SyntheticLM:
     """Seeded order-1 Markov stream: next-token structure a model can learn."""
 
     def __init__(self, cfg: DataConfig, device=None):
-        if cfg.frontend is not None:
-            raise NotImplementedError(f"the {cfg.frontend} frontend's inputs "
-                                      "are not ported yet (ROADMAP A.9)")
         self.cfg = cfg
         self.device = resolve_device(device)
         rng = np.random.default_rng(cfg.seed)
@@ -47,7 +59,9 @@ class SyntheticLM:
 
     def batch(self, step: int) -> dict:
         """Batch for ``step`` (deterministic, restart-safe):
-        ``{"tokens", "labels"}``, each (B, S) int32."""
+        ``{"tokens", "labels"}``, each (B, S) int32, and the frontend's
+        ``"prefix_embeds"`` or ``"frames"`` (B, F, D) bf16 where it has
+        one."""
         cfg = self.cfg
         rng = np.random.default_rng((cfg.seed, step))
         B, S = cfg.global_batch, cfg.seq_len
@@ -60,7 +74,12 @@ class SyntheticLM:
             nxt = self._succ[toks[:, t], choice[:, t]]
             toks[:, t + 1] = np.where(noise[:, t], noise_tok[:, t], nxt)
         on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(self.device)  # noqa: E731
-        return {"tokens": on(toks[:, :-1]), "labels": on(toks[:, 1:])}
+        out = {"tokens": on(toks[:, :-1]), "labels": on(toks[:, 1:])}
+        if cfg.frontend in _FRONTEND_KEY:
+            out[_FRONTEND_KEY[cfg.frontend]] = bf16_embeddings(
+                rng.standard_normal((B, cfg.frontend_len, cfg.d_model)),
+                self.device)
+        return out
 
 
 def make_pipeline(model_cfg, seq_len: int, global_batch: int, seed: int = 0,
@@ -70,4 +89,7 @@ def make_pipeline(model_cfg, seq_len: int, global_batch: int, seed: int = 0,
         global_batch=global_batch, seed=seed,
         frontend=model_cfg.frontend, frontend_len=model_cfg.frontend_len,
         d_model=model_cfg.d_model)
+    if model_cfg.frontend == "vision":
+        # the patches take frontend_len of the sequence
+        dcfg.seq_len = seq_len - model_cfg.frontend_len
     return SyntheticLM(dcfg, device=device)

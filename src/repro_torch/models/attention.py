@@ -8,8 +8,10 @@ direct softmax attention for short keys and decode, and above
 ``2 * kv_chunk`` keys the KV-chunked online-softmax scan
 (`_chunked_attend`, a Python loop over chunks in place of ``lax.scan``,
 each chunk recomputed in the backward pass as the reference's
-``jax.checkpoint`` does).  Caches are written in place.  Cross-attention
-(encoder-decoder models) is not ported yet.
+``jax.checkpoint`` does).  Caches are written in place.  ``apply_gqa``
+also runs the encoder's bidirectional attention (``causal=False``) and the
+decoder's cross-attention over the encoder's output (``cross=True``), which
+take the plain attend as in the reference: B4 is causal only.
 """
 from __future__ import annotations
 
@@ -117,7 +119,9 @@ def attend(q, k, v, qpos, kpos, *, causal=True, window=0, kv_valid=None,
 # GQA / MQA module
 # ---------------------------------------------------------------------------
 
-def gqa_specs(cfg: ModelConfig) -> dict:
+def gqa_specs(cfg: ModelConfig, *, cross: bool = False) -> dict:
+    """Parameters of one GQA block (``cross`` has the same keys: its K
+    and V project the encoder's output)."""
     D, H, KV, Dh = cfg.d_model, cfg.padded_heads, cfg.kv_heads_effective, cfg.head_dim
     s = {
         "wq": ParamSpec((D, H, Dh), ("embed", "heads", "head_dim")),
@@ -149,32 +153,56 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
 
 
 def apply_gqa(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-              positions: torch.Tensor, cache: dict | None = None,
-              cache_index: int | None = None, kv_valid=None, window: int = 0):
-    """Causal self-attention with grouped K/V heads and rope.  Returns
-    (output, cache).
+              positions: torch.Tensor, kv_x: torch.Tensor | None = None,
+              cross: bool = False, cache: dict | None = None,
+              cache_index: int | None = None, kv_valid=None,
+              causal: bool = True, window: int = 0, use_rope: bool = True):
+    """Attention with grouped K/V heads.  Returns (output, cache).
 
-    With ``cache``, K/V are written at ``cache_index`` in place and
-    attention runs against the whole cache (``kv_valid`` masks the unwritten
-    rows); the same dict is returned.
+    - self-attention (``cross=False``): K/V from ``x``, rope on q and k
+      under ``use_rope``; with ``cache``, K/V are written at ``cache_index``
+      in place and attention runs against the whole cache (``kv_valid``
+      masks the unwritten rows); the same dict is returned.
+    - cross-attention (``cross=True``, no rope, never causal): at prefill
+      pass ``kv_x`` (the encoder's output), whose K/V are written into
+      ``cache`` in place (a fresh dict without one: the reference's values);
+      at decode pass ``kv_x=None`` to attend against the cached K/V, which
+      ``k_norm`` does not touch again.
     """
     H, KV, Dh = cfg.padded_heads, cfg.kv_heads_effective, cfg.head_dim
+    cached_cross = cross and kv_x is None
 
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    if "bk" in p:
-        k, v = k + p["bk"], v + p["bv"]
+    if cached_cross:
+        k, v = cache["k"], cache["v"]
+    else:
+        src = kv_x if cross else x
+        k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+        v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
     if "q_norm" in p:
         q = rmsnorm(p["q_norm"], q, cfg.rms_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.rms_eps)
-    cos, sin = rope_angles(positions, Dh, cfg.rope_theta)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+        if not cached_cross:
+            k = rmsnorm(p["k_norm"], k, cfg.rms_eps)
+    if use_rope and not cross:
+        cos, sin = rope_angles(positions, Dh, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
-    if cache is not None:
+    if cross and not cached_cross:
+        if cache is None:
+            cache = {"k": k.to(torch.bfloat16), "v": v.to(torch.bfloat16)}
+        else:
+            if cache["k"].shape[1] != k.shape[1]:
+                raise ValueError(f"the cross cache holds {cache['k'].shape[1]} "
+                                 f"encoder positions, the encoder gave "
+                                 f"{k.shape[1]}")
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    elif cache is not None and not cross:
         idx = 0 if cache_index is None else int(cache_index)
         Sq = q.shape[1]
         cache["k"][:, idx:idx + Sq] = k.to(torch.bfloat16)
@@ -186,8 +214,8 @@ def apply_gqa(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     B, Sq = q.shape[0], q.shape[1]
     qg = q.reshape(B, Sq, KV, G, Dh)
     qpos = positions[0] if positions.dim() == 2 else positions
-    out = attend(qg, k, v, qpos, kpos, causal=True, window=window,
-                 kv_valid=kv_valid, kv_chunk=cfg.attn_chunk,
+    out = attend(qg, k, v, qpos, kpos, causal=causal and not cross,
+                 window=window, kv_valid=kv_valid, kv_chunk=cfg.attn_chunk,
                  use_pallas=cfg.use_pallas)
     out = out.reshape(B, Sq, H, Dh)
     return tp_project_rs(out, p["wo"], cfg, contract_model_dims=2), cache

@@ -3,7 +3,7 @@
 PyTorch counterpart of ``repro.models.layers``.  On one card there is no
 mesh: :func:`constrain` is the identity and :func:`tp_project_rs` the plain
 einsum, which is what the reference computes off-mesh.  Their mesh paths
-come with the mesh item (ROADMAP A.9).
+come with the mesh item (ROADMAP A.9c).
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ def constrain(x: torch.Tensor, cfg, template: tuple) -> torch.Tensor:
     """Activation sharding constraint: the identity on one device."""
     if cfg.mesh is not None:
         raise NotImplementedError("activation sharding over a mesh is not "
-                                  "ported yet (ROADMAP A.9)")
+                                  "ported yet (ROADMAP A.9c)")
     return x
 
 

@@ -18,8 +18,8 @@ one unit's parameters and cache).  In training (``train`` with
 ``cfg.remat`` and autograd on) each unit runs under
 ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint`` of the
 scanned unit: its activations are recomputed in the backward pass.  Caches
-are written in place.  Prefix embeddings (modality frontends) raise
-``NotImplementedError`` naming their ROADMAP item.
+are written in place.  Prefix embeddings (the vision frontend's stub
+patch embeddings) go in front of the token rows.
 """
 from __future__ import annotations
 
@@ -232,14 +232,17 @@ def _apply_layer(cfg, kind, moe_layer, p, x, positions, cache, cache_index,
 def _embed_inputs(cfg, params, tokens, prefix_embeds):
     """Embedding rows times sqrt(d_model) rounded to bf16, as the reference
     multiplies (sqrt(2048) = 45.2548 becomes 45.25): a bf16 tensor, since
-    ``bf16_tensor * python_float`` would multiply by the float32 value."""
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings (vision/audio frontends) "
-                                  "are not ported yet (ROADMAP A.9)")
+    ``bf16_tensor * python_float`` would multiply by the float32 value.
+    ``prefix_embeds`` (B, P, D), the vision frontend's patch embeddings,
+    go in front of the token rows in their dtype; positions then run over
+    both."""
     emb = params["embed"]
     scale = torch.full((), math.sqrt(float(cfg.d_model)), dtype=torch.float32,
                        device=emb.device).to(torch.bfloat16)
-    return emb[tokens] * scale
+    x = emb[tokens] * scale
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _logits(cfg, params, x):

@@ -96,7 +96,7 @@ def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor):
     """x: (B, S, D) -> (y, aux_loss), on one device."""
     if cfg.mesh is not None:
         raise NotImplementedError("the expert-parallel shard_map path is not "
-                                  "ported yet (ROADMAP A.9)")
+                                  "ported yet (ROADMAP A.9c)")
     m = cfg.moe
     B, S, D = x.shape
     N = B * S

@@ -1,2 +1,2 @@
 """Archive storage tiers (``compression``); the mesh half of the reference's
-``parallel`` (``sharding``) is not ported yet (ROADMAP A.9)."""
+``parallel`` (``sharding``) is not ported yet (ROADMAP A.9c)."""

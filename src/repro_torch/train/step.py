@@ -8,8 +8,9 @@ route: ``cfg.remat`` recomputes each layer unit in the backward pass, and
 attention takes the plain route unless ``cfg.use_pallas`` asks for the
 flash-attention kernel B4, which has no backward (as in the reference) and
 raises under autograd.  ``build_prefill_step`` / ``build_decode_step`` wrap
-the serving paths.  Sharded gradient accumulators (``grad_shardings``) and
-the vision frontend are not ported yet.
+the serving paths.  The vision frontend's patch positions are cut from the
+logits (or the hidden states) before the loss, as in the reference.
+Sharded gradient accumulators (``grad_shardings``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -90,21 +91,21 @@ def fused_cross_entropy(x, head, labels, *, vocab_size: int,
 
 def make_loss_fn(model: Model):
     cfg = model.cfg
-    if cfg.frontend == "vision":
-        raise NotImplementedError("the vision frontend is not ported yet "
-                                  "(ROADMAP A.9)")
+    # the vision frontend's patches lead the sequence and have no labels
+    skip = cfg.frontend_len if cfg.frontend == "vision" else 0
 
     def loss_fn(params, batch):
         if cfg.fused_ce and not cfg.encdec:
             x, aux = lm.forward_hidden(cfg, params, batch["tokens"],
                                        batch.get("prefix_embeds"), train=True)
-            loss = fused_cross_entropy(x, lm.lm_head_weights(cfg, params),
+            loss = fused_cross_entropy(x[:, skip:],
+                                       lm.lm_head_weights(cfg, params),
                                        batch["labels"],
                                        vocab_size=cfg.vocab_size,
                                        chunk=cfg.ce_chunk)
         else:
             logits, aux = model.forward(params, batch, train=True)
-            loss = cross_entropy(logits, batch["labels"])
+            loss = cross_entropy(logits[:, skip:], batch["labels"])
         aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
         return loss + aux, {"ce": loss, "aux": aux}
 
@@ -145,7 +146,7 @@ def build_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
     """
     if grad_shardings is not None:
         raise NotImplementedError("sharded gradient accumulators are not "
-                                  "ported yet (ROADMAP A.9)")
+                                  "ported yet (ROADMAP A.9c)")
     grad_fn = value_and_grad(make_loss_fn(model))
     G = tcfg.grad_accum
 

@@ -51,6 +51,7 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.models.param", "repro_torch.models.layers",
            "repro_torch.models.attention", "repro_torch.models.moe",
            "repro_torch.models.lm", "repro_torch.models.api",
+           "repro_torch.models.encdec",
            "repro_torch.kernels.rwkv6_scan", "repro_torch.kernels.rglru_scan",
            "repro_torch.models.rwkv6", "repro_torch.models.rglru",
            "repro_torch.kernels.flash_attention", "repro_torch.train",
@@ -184,11 +185,15 @@ def _tiny_candidates() -> CandidateSet:
     lambda: ScenarioEngine(types_per_region=2).build_ingestor(window=2),
     lambda: SpotElasticTrainer(None, None, None, None, ElasticConfig(), None,
                                "unused"),
+    lambda: get_model(get_config("seamless-m4t-medium")),
+    lambda: get_model(get_config("llava-next-mistral-7b")),
+    lambda: make_pipeline(get_config("llava-next-mistral-7b"), 2890, 1),
 ], ids=["resolve", "resolve-cuda", "engine", "server", "cache", "stage",
         "model", "params", "model-rwkv6", "model-recurrentgemma",
         "model-qwen2", "pipeline", "train-state", "launcher", "stage-int8",
         "stage-sharded", "rolling-sharded", "chaos-replay",
-        "scenario-ingestor", "elastic-trainer"])
+        "scenario-ingestor", "elastic-trainer", "model-seamless",
+        "model-llava", "pipeline-vision"])
 def test_default_device_raises_without_cuda(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -45,14 +45,15 @@ from repro.models import layers as jlayers
 from repro.models import lm as jlm
 from repro.models import moe as jmoe
 from repro_torch import convert
+from repro_torch.configs.base import TrainConfig
 from repro_torch.configs.registry import get_config as torch_config
 from repro_torch.models import attention as tattn
-from repro_torch.models import Model as TorchModel
 from repro_torch.models import get_model as torch_model
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import moe as tmoe
 from repro_torch.models.param import tree_leaves
+from repro_torch.train import step as tstep
 
 ARCH = "deepseek-v2-lite-16b"
 B, S, T = 2, 72, 4          # a 72-token prompt: Sk = 76 > 2 * attn_chunk
@@ -375,16 +376,15 @@ def test_unported_paths_raise():
     pos = torch.arange(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="no backward"):
         tattn.attend(q, k, k, pos, pos, use_pallas=True)
-    # encoder-decoder models, modality frontends and prefix embeddings
-    for arch in ("seamless-m4t-medium", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            torch_model(torch_config(arch).reduced(), device="cpu")
+    # the mesh (ROADMAP A.9c): activation sharding, the expert-parallel MoE
+    # path and sharded gradient accumulators
     _, ct = _cfgs()
-    tokens = torch.zeros((1, 2), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        tlm._embed_inputs(ct, {"embed": torch.zeros((8, 64))}, tokens,
-                          torch.zeros((1, 3, 64)))
-    encdec = torch_config("seamless-m4t-medium").reduced()
-    with pytest.raises(NotImplementedError, match="A.9"):
-        TorchModel(encdec, torch.device("cpu")).forward(
-            {}, {"tokens": tokens})
+    meshed = dataclasses.replace(ct, mesh=object())
+    x = torch.zeros((1, 2, 64), dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="A.9c"):
+        tlayers.constrain(x, meshed, ("dp", "sp", None))
+    with pytest.raises(NotImplementedError, match="A.9c"):
+        tmoe.apply_moe(meshed, {}, x)
+    with pytest.raises(NotImplementedError, match="A.9c"):
+        tstep.build_train_step(torch_model(ct, device="cpu"), TrainConfig(),
+                               grad_shardings={})

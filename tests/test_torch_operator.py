@@ -17,7 +17,8 @@ in the reference (JAX on the CPU) and once in the port with
   benchmark's gates hold, and delivered availability stays within
   ``DELIVERY_REGRESSION`` of the committed ``BENCH_operator.json``;
 - the reference's own assertions hold on the port, the port's
-  ``ChaosReplay`` runs clean under the ``racecheck`` fixture, and asking
+  ``ChaosReplay`` runs clean under the port's ``torch_racecheck`` fixture
+  (``tests/_torch_racecheck.py``), and asking
   for CUDA without it raises.
 
 Scores, pools and reports came out bit-equal on these seeds; a pool that
@@ -49,6 +50,8 @@ import repro_torch.stream as p_stream
 from repro_torch.core.survival import fit_survival_model as p_fit_survival
 from repro_torch.operator.risk import archive_scores as p_archive_scores
 from repro_torch.operator.risk import assess_pool as p_assess_pool
+
+from _torch_racecheck import torch_racecheck  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
@@ -660,21 +663,21 @@ def test_operator_daemon_thread_lifecycle():
     assert running and cycles >= 3 and not after
 
 
-def test_chaos_replay_under_racecheck_is_clean(racecheck):
-    from repro.analysis.racecheck import (instrument_admission_queue,
-                                          instrument_cmdb,
-                                          instrument_fault_server,
-                                          instrument_server)
+def test_chaos_replay_under_racecheck_is_clean(torch_racecheck):
+    from repro_torch.analysis.racecheck import (instrument_admission_queue,
+                                                instrument_cmdb,
+                                                instrument_fault_server,
+                                                instrument_server)
     rep = p_operator.ChaosReplay(seed=7, n_targets=24, window=6,
                                  warmup_cycles=6, cycles=8,
                                  schedule=_full_menu(PORT), device="cpu")
-    instrument_server(racecheck, rep.server)
-    instrument_fault_server(racecheck, rep.faulty)
-    instrument_admission_queue(racecheck, rep.queue)
-    instrument_cmdb(racecheck, rep.operator.cmdb)
+    instrument_server(torch_racecheck, rep.server)
+    instrument_fault_server(torch_racecheck, rep.faulty)
+    instrument_admission_queue(torch_racecheck, rep.queue)
+    instrument_cmdb(torch_racecheck, rep.operator.cmdb)
     report = rep.run("racecheck")
     assert report.stranded_tickets == 0 and report.worker_alive_at_end
-    assert racecheck.problems() == []
+    assert torch_racecheck.problems() == []
     assert _report(report) == _report(_replay(REF, _full_menu(REF),
                                               "racecheck"))
 

@@ -6,7 +6,7 @@ unguarded writes, detects lock-order cycles, tolerates RLock re-entrancy,
 backs a ``threading.Condition`` and restores ``__setattr__`` on close.
 
 Threaded half, on the CPU under the port's registry (the ``torch_racecheck``
-fixture fails a test on any report or cycle at teardown): admission
+fixture of ``tests/_torch_racecheck.py`` fails a test on any report or cycle at teardown): admission
 serving with concurrent submitters, the ingest pump, the chaos proxy's
 failure counter, concurrent CMDB registration and the port's
 ``ChaosReplay``, with live ingestion and threaded serving run together.
@@ -38,24 +38,12 @@ from repro_torch.operator.cmdb import PoolCMDB
 from repro_torch.serve import BatchServer, DeviceArchive
 from repro_torch.stream import AdmissionQueue, IngestPump
 
+from _torch_racecheck import torch_racecheck  # noqa: F401
 from test_torch_operator import PORT as OPERATOR_PORT
 from test_torch_operator import _full_menu
 from test_torch_stream import _pump_world, synth_candidates
 
 CPU = "cpu"
-
-
-@pytest.fixture
-def torch_racecheck():
-    """The port's registry; fails the test on any race or cycle."""
-    registry = LockRegistry()
-    try:
-        yield registry
-    finally:
-        problems = registry.problems()
-        registry.close()
-        if problems:
-            pytest.fail("racecheck: " + "; ".join(problems))
 
 
 class Counter:

@@ -25,8 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.analysis.racecheck import (instrument_admission_queue,
-                                      instrument_pump, instrument_server)
 from repro.cloudsim import (Catalog, CollectorConfig, DataCollector,
                             SpotMarket, SPSQueryService)
 from repro.core import EngineConfig as JConfig
@@ -36,6 +34,8 @@ from repro.serve import BatchServer as JServer
 from repro.stream import LiveIngestor as JIngestor
 from repro.stream import RollingDeviceArchive as JRolling
 from repro_torch import convert
+from repro_torch.analysis.racecheck import (instrument_admission_queue,
+                                            instrument_pump, instrument_server)
 from repro_torch.core import EngineConfig, RecommendationEngine, ResourceRequest
 from repro_torch.core import scoring
 from repro_torch.core.types import RequestBatch
@@ -46,6 +46,7 @@ from repro_torch.stream import (AdmissionQueue, ArchiveSnapshot, IngestPump,
 from repro_torch.stream.admission import Ticket
 
 from _score_helpers import ATOL, RTOL
+from _torch_racecheck import torch_racecheck  # noqa: F401
 from test_serve_batch import synth_candidates as _ref_candidates
 from test_stream import FakeClock
 
@@ -681,8 +682,8 @@ def test_admission_source_failure_fails_tickets_not_hangs():
     assert q.stats.failed_drains == 1 and q.stats.forced_drains == 1
 
 
-def test_threaded_admission_resolves_every_ticket_exactly_once(monkeypatch,
-                                                               racecheck):
+def test_threaded_admission_resolves_every_ticket_exactly_once(
+        monkeypatch, torch_racecheck):
     """Wall-clock worker and concurrent submitters: every ticket resolves
     exactly once and the queue's and server's ledgers balance, under the
     lock sanitizer."""
@@ -701,8 +702,8 @@ def test_threaded_admission_resolves_every_ticket_exactly_once(monkeypatch,
     ing.prime()
     server = BatchServer(_tiled_engine(), bucket_sizes=(1, 4, 8))
     q = AdmissionQueue(server, lambda: ing.archive, max_wait_s=0.005)
-    instrument_server(racecheck, server)
-    instrument_admission_queue(racecheck, q)
+    instrument_server(torch_racecheck, server)
+    instrument_admission_queue(torch_racecheck, q)
     q.start()
     n_threads, per_thread = 4, 6
     tickets: list = []
@@ -772,11 +773,11 @@ def _pump_world(cycles=WINDOW):
     return col, cache, ing, collect
 
 
-def test_ingest_pump_advances_versions_without_polling(racecheck):
+def test_ingest_pump_advances_versions_without_polling(torch_racecheck):
     col, cache, ing, collect = _pump_world()
     v0, key0 = ing.version, ing.archive.key
     pump = IngestPump(ing, collect)
-    instrument_pump(racecheck, pump)
+    instrument_pump(torch_racecheck, pump)
     with pump:
         deadline = time.monotonic() + 30.0
         while ing.version < v0 + 5 and time.monotonic() < deadline:
