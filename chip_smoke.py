@@ -6,8 +6,9 @@ region-sharded multi-vendor world, spot-elastic training with checkpoints
 and the int8 gradient exchange, LM serving (DeepSeek-V2-Lite,
 RWKV6-7B, RecurrentGemma-2B), the encoder-decoder and vision-prefix
 families (seamless-m4t-medium, llava-next-mistral-7b) served and run
-forward, and qwen2-0.5b's full-sequence forward and training step, on one
-NVIDIA GPU.
+forward, qwen2-0.5b's full-sequence forward and training step, and the
+device mesh (the expert-parallel MoE layer, sharded restore and a step
+with sharded accumulators on four ranks), on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -267,6 +268,37 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    cross-entropy of the forward phase's B4 logits on the same batch.
    Prints step time, tokens/s, peak memory, the model-FLOP share and a
    profiled fourth step.
+8b. Mesh phase (``mesh_phase``): the device mesh of ``repro_torch`` run
+   by four ranks (``torch.multiprocessing``, ``spawn``) that share
+   ``cuda:0`` as a (2, 2) ``("data", "model")`` mesh over gloo (NCCL
+   refuses two ranks on one card); the parent built every kernel and the
+   ranks load the libraries.  Each rank: (a) every MoE layer of
+   DeepSeek-V2-Lite (26, E = 64, top-6, D = 2048, expert F = 1408, 2
+   shared experts) at full width through the expert-parallel path with
+   ``use_pallas=True``, each layer drawn whole from its seed and sharded,
+   on seeded bf16 hidden states of 16 x 128 tokens (the LM phase's
+   prefill) and 16 x 1 (a decode batch): B7 and B8 once a layer, rank and
+   batch (the counters set to 0 just before each call and read just
+   after), each launch held against its plain version right after it (one
+   bf16 ulp or 1e-3 * max; E_loc = 32, C = 120 at prefill, 8 at decode),
+   y gathered over "data" within 2 bf16 ulps of max|y| of the one-device
+   path run on each data shard (the same local capacity), aux within 1e-6
+   of the shards' mean; (b) ``restore(shardings=)`` of a full-width
+   qwen2-0.5b ``TrainState`` saved once (7.9 GB, in a temporary directory
+   the phase removes) with ``param_shardings`` / ``opt_shardings``: every
+   local shard of the spec's shape and bit-equal to its slice of the leaf
+   restored whole; (c) one qwen2-0.5b step of 8 x 512 tokens,
+   ``grad_accum=2``, plain route, ``grad_shardings = opt_shardings``, each
+   rank its ``batch_pspec`` shard; rank 0 holds it against the one-device
+   step with the same microbatches (``grad_accum = 4``): loss within 1e-6
+   relative, its master shard within ``mesh_step_bound`` (float32
+   reassociation of the accumulators and the norm), the gathered
+   parameters within one bf16 ulp.  A failing rank fails the phase.
+   Prints wall times only (the ranks time-slice the card), the phase's
+   seconds against its 90 s budget, the launches a rank against the
+   formula, the restore's seconds and bytes a rank, the accumulators'
+   resident bytes a rank; then B7's and B8's device times alone at the EP
+   shapes.
 9. Print B4's time over SDPA's, B8's over ``torch.bmm``'s and B7's over
    ``torch.bmm(x, cat([w1, w3], -1))``'s (the two products alone, a
    yardstick, not ``library_ms``: no one call computes B7), prefill and
@@ -4478,6 +4510,437 @@ def train_phase(torch, forward_ce: float):
     return report
 
 
+# ---------------------------------------------------------------------------
+# mesh phase: four gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH_SHAPE = (2, 2)              # ("data", "model"): four ranks on cuda:0
+MESH_ARCH = "deepseek-v2-lite-16b"
+MESH_SEED = 11                   # a layer's weights: MESH_SEED + its index
+MESH_BATCHES = {"prefill": (LM_BATCH, LM_PROMPT), "decode": (LM_BATCH, 1)}
+MESH_Y_ULPS = 2.0                # y against the per-shard one-device path
+MESH_AUX_TOL = 1e-6
+MESH_STEP_ARCH = ELASTIC_ARCH    # qwen2-0.5b, full width
+MESH_STEP_BATCH, MESH_STEP_SEQ, MESH_STEP_ACCUM = 8, 512, 2
+MESH_LOSS_RTOL = 1e-6
+MESH_BUDGET_S = 90.0
+MESH_TIMEOUT_S = 600.0
+MESH_REDUCED = False             # reduced widths: a CPU rehearsal only
+
+
+def mesh_ep(torch, mesh) -> dict:
+    """Every MoE layer of ``MESH_ARCH`` at full width through the
+    expert-parallel path (B7/B8) on this rank, at the LM phase's prefill
+    batch and a decode batch; each layer drawn whole from its seed on every
+    rank, which keeps its shard.  Each EP call has the kernels' counters
+    set to 0 just before and read just after; each launch is held against
+    its plain version right after it; y (gathered over "data") against the
+    one-device path run on each data shard, aux against the mean of the
+    shards' aux.  Wall times only: four ranks time-slice the card."""
+    from dataclasses import replace
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.models import lm
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.param import init_params
+    from repro_torch.parallel.collectives import full_tensor
+    from repro_torch.parallel.sharding import (NamedSharding, P, dp_size,
+                                               shard_tree)
+
+    dev = torch.device(DEVICE)
+    base = replace(get_config(MESH_ARCH), use_pallas=True)
+    cfg, one = replace(base, mesh=mesh), base
+    layers = [i for i in range(cfg.num_layers) if lm._is_moe_layer(cfg, i)]
+    specs = tmoe._moe_specs(cfg.moe)
+    shardings = {k: NamedSharding(mesh, v) for k, v in specs.items()}
+    x_shd = NamedSharding(mesh, P(("data",), None, None))
+    n_dp = dp_size(mesh)
+    gen = torch.Generator(device=dev)
+    xs = {name: torch.randn((B, S, cfg.d_model), generator=gen.manual_seed(
+              MESH_SEED + k), device=dev).bfloat16()
+          for k, (name, (B, S)) in enumerate(MESH_BATCHES.items())}
+
+    real = {name: getattr(tmoe, name) for name in ("moe_gmm", "moe_gmm_down")}
+    held = {name: dict(checked=0, beyond_one_ulp=0, max_abs_err=0.0)
+            for name in real}
+    shapes = {}
+
+    def holding(name):
+        def wrapper(*args):
+            out = real[name](*args)
+            plain = real[name](*args, backend="torch")
+            far, bad, err = bf16_closeness(out, plain)
+            if bad:
+                fail(f"mesh phase: {name} at {tuple(args[0].shape)} differs "
+                     f"from its plain version in {bad} elements")
+            h = held[name]
+            h["checked"] += 1
+            h["beyond_one_ulp"] += far
+            h["max_abs_err"] = max(h["max_abs_err"], err)
+            shapes.setdefault(name, set()).add(tuple(args[0].shape))
+            return out
+        return wrapper
+
+    launches = {name: 0 for name in real}
+    worst = {name: dict(ulps=0.0, aux=0.0) for name in MESH_BATCHES}
+    wall = {name: [] for name in MESH_BATCHES}
+    capacity = {}
+    for i in layers:
+        full = init_params(tmoe.moe_specs(cfg),
+                           gen.manual_seed(MESH_SEED + 100 + i), device=dev)
+        p = shard_tree(full, shardings)
+        for name, x in xs.items():
+            xd = shard_tree(x, x_shd)
+            for attr in real:
+                setattr(tmoe, attr, holding(attr))
+            try:
+                gmm.moe_gmm.launches = gmm.moe_gmm_down.launches = 0
+                mesh_sync(torch)
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    y, aux = tmoe.apply_moe(cfg, p, xd)
+                mesh_sync(torch)
+                wall[name].append(time.perf_counter() - t0)
+                launches["moe_gmm"] += gmm.moe_gmm.launches
+                launches["moe_gmm_down"] += gmm.moe_gmm_down.launches
+            finally:
+                for attr, fn in real.items():
+                    setattr(tmoe, attr, fn)
+            got = full_tensor(y)
+            with torch.no_grad():
+                refs = [tmoe.apply_moe(one, full, s) for s in x.chunk(n_dp)]
+            y_ref = torch.cat([r[0] for r in refs])
+            aux_ref = torch.stack([r[1] for r in refs]).mean()
+            mag = float(y_ref.float().abs().max())
+            ulp = 2.0 ** (np.floor(np.log2(mag)) - 7)
+            ulps = float((got.float() - y_ref.float()).abs().max()) / ulp
+            aux_err = abs(float(aux.to_local()) - float(aux_ref))
+            if not np.isfinite(mag) or ulps > MESH_Y_ULPS \
+                    or aux_err > MESH_AUX_TOL:
+                fail(f"mesh phase: layer {i} {name}: y {ulps:.3g} bf16 ulps "
+                     f"of max|y| (> {MESH_Y_ULPS}) or aux {aux_err:.3g} "
+                     f"(> {MESH_AUX_TOL}) from the per-shard one-device path")
+            worst[name] = dict(ulps=max(worst[name]["ulps"], ulps),
+                               aux=max(worst[name]["aux"], aux_err))
+            capacity[name] = tmoe.capacity_of(cfg, x.numel() // x.shape[-1]
+                                              // n_dp)
+        del full, p
+    per = len(layers) * len(MESH_BATCHES)
+    for name, n in launches.items():
+        if DEVICE == "cpu":                     # a CPU rehearsal launches none
+            continue
+        if n != per:
+            fail(f"mesh phase: {name} launched {n} times on this rank, not "
+                 f"one a layer and batch: {len(layers)} x "
+                 f"{len(MESH_BATCHES)} = {per}")
+        if held[name]["checked"] != n:
+            fail(f"mesh phase: {held[name]['checked']} of {n} {name} "
+                 "launches held against the plain version")
+    return dict(layers=len(layers), launches=launches, per_formula=per,
+                held=held, shapes={k: sorted(v) for k, v in shapes.items()},
+                capacity=capacity, worst=worst,
+                wall_ms_p50={k: 1e3 * float(np.median(v))
+                             for k, v in wall.items()})
+
+
+def mesh_restore(torch, mesh, root: str) -> dict:
+    """``restore(shardings=)`` of the saved qwen2-0.5b ``TrainState``: each
+    leaf a DTensor of its sharding, its local shard of the spec's shape and
+    bit-equal to its slice of the leaf restored whole on the card."""
+    from repro_torch._tree import tree_flatten, tree_map
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import local_shape, local_slices
+    from repro_torch.train import TrainState
+    from repro_torch.train.optim import OptState
+    from repro_torch.train.step import train_state_shardings
+
+    dev = torch.device(DEVICE)
+    tcfg = TrainConfig()
+    model = get_model(get_config(MESH_STEP_ARCH), device=dev)
+    shardings = train_state_shardings(model, mesh, tcfg)
+    meta = lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta")  # noqa: E731
+    p = tree_map(meta, model.structure())
+    f32 = tree_map(lambda s: torch.empty(s.shape, dtype=torch.float32,
+                                         device="meta"), model.structure())
+    like = TrainState(p, OptState(mu=f32, nu=f32,
+                                  master=f32 if tcfg.master_weights else None,
+                                  count=torch.empty((), dtype=torch.int32,
+                                                    device="meta")))
+    mesh_sync(torch)
+    t0 = time.perf_counter()
+    got, step = ckpt.restore(root, like, shardings=shardings)
+    mesh_sync(torch)
+    seconds = time.perf_counter() - t0
+    d = Path(root) / f"step_{step:09d}"
+    read = whole = 0
+    leaves = tree_flatten(got)[0]
+    for i, (g, s, tgt) in enumerate(zip(leaves, tree_flatten(shardings)[0],
+                                        tree_flatten(like)[0])):
+        shape = tuple(tgt.shape)
+        local = g.to_local()
+        if tuple(g.placements) != s.placements or g.dtype != tgt.dtype \
+                or tuple(local.shape) != local_shape(shape, s):
+            fail(f"mesh phase: restored leaf {i} is {g.placements} "
+                 f"{tuple(local.shape)} {g.dtype}, not {s.placements} "
+                 f"{local_shape(shape, s)} {tgt.dtype}")
+        one = torch.from_numpy(np.load(d / f"leaf_{i:05d}.npy")).to(
+            device=dev, dtype=tgt.dtype)            # the one-device restore
+        if not torch.equal(local, one[local_slices(shape, s)]):
+            fail(f"mesh phase: restored leaf {i}'s shard is not its slice "
+                 "of the one-device restore")
+        read += local.numel() * 4                  # stored as float32 / int32
+        whole += one.numel() * 4
+        del one
+    return dict(step=step, leaves=len(leaves), seconds=seconds,
+                bytes_read=read, bytes_whole=whole)
+
+
+def mesh_step_bound(torch, lr: float, s: float, A, w_new):
+    """Per element, how far float32 reassociation can move a master weight
+    in one AdamW step from zero moments: the accumulated gradients part by
+    at most 2u * A (A = sum of |microbatch gradient| / G, u = 2^-24); the
+    update g s / (|g s| + eps) by at most s / eps times that (never more
+    than 2), plus 76 u for its own rounding and the norm's; the weight by
+    lr times that plus one ulp of the result."""
+    u = 2.0 ** -24
+    dupd = torch.clamp(s * 2 * u * A.double() / 1e-8, max=2.0) + 76 * u
+    w = w_new.double().abs().clamp_min(1e-38)
+    return lr * dupd + torch.exp2(torch.floor(torch.log2(w)) - 23)
+
+
+def mesh_step(torch, mesh) -> dict:
+    """One qwen2-0.5b step (8 x 512 tokens, ``grad_accum=2``, plain route)
+    with ``grad_shardings = opt_shardings``, each rank its ``batch_pspec``
+    shard.  Rank 0 holds it against the one-device step on the whole batch
+    with the same microbatches (``grad_accum = 2 x dp``): loss within
+    ``MESH_LOSS_RTOL``, its master shard within ``mesh_step_bound`` and the
+    gathered parameters within one bf16 ulp."""
+    from dataclasses import replace
+
+    import torch.distributed as dist
+
+    from repro_torch._tree import tree_flatten
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_model
+    from repro_torch.parallel.sharding import (batch_shardings, dp_size,
+                                               local_slices, shard_tree)
+    from repro_torch.train import TrainState, build_train_step, init_train_state
+    from repro_torch.train.optim import OptState
+    from repro_torch.train.step import (make_loss_fn, train_state_shardings,
+                                        value_and_grad)
+
+    dev = torch.device(DEVICE)
+    cfg = get_config(MESH_STEP_ARCH)
+    model = get_model(cfg, device=dev)
+    tcfg = TrainConfig(grad_accum=MESH_STEP_ACCUM)
+    state = init_train_state(model, tcfg,
+                             torch.Generator(device=dev).manual_seed(LM_SEED))
+    batch = make_pipeline(cfg, MESH_STEP_SEQ, MESH_STEP_BATCH, seed=0,
+                          device=dev).batch(0)
+    oshard = train_state_shardings(model, mesh, tcfg).opt.mu
+    bshard = batch_shardings(batch, mesh)
+    opt = OptState(mu=shard_tree(state.opt.mu, oshard),
+                   nu=shard_tree(state.opt.nu, oshard),
+                   master=shard_tree(state.opt.master, oshard),
+                   count=state.opt.count)
+    rank0 = dist.get_rank() == 0
+    if not rank0:
+        state = TrainState(state.params, None)   # only rank 0 keeps it whole
+    dbatch = {k: shard_tree(v, bshard[k]) for k, v in batch.items()}
+    step_fn = build_train_step(model, tcfg, grad_shardings=oshard)
+    mesh_sync(torch)
+    t0 = time.perf_counter()
+    new, metrics = step_fn(TrainState(state.params, opt), dbatch)
+    mesh_sync(torch)
+    step_s = time.perf_counter() - t0
+    flat_shd = tree_flatten(oshard)[0]
+    acc_bytes = sum(4 * int(np.prod([sl.stop - sl.start for sl in
+                                     local_slices(tuple(s.shape), shd)]))
+                    for s, shd in zip(tree_flatten(model.structure())[0],
+                                      flat_shd))
+    whole = 4 * model.num_params()
+    report = dict(step_s=step_s, loss=float(metrics["loss"]),
+                  grad_norm=float(metrics["grad_norm"]),
+                  accumulator_bytes=acc_bytes, accumulator_bytes_whole=whole)
+    if not rank0:
+        return report
+    G = MESH_STEP_ACCUM * dp_size(mesh)
+    want, wm = build_train_step(model, replace(tcfg, grad_accum=G))(state,
+                                                                    batch)
+    rel = abs(float(metrics["loss"]) - float(wm["loss"])) / abs(float(wm["loss"]))
+    if not rel <= MESH_LOSS_RTOL:
+        fail(f"mesh phase: sharded step's loss {float(metrics['loss'])!r} is "
+             f"{rel:.3g} off the one-device step's {float(wm['loss'])!r}")
+    grad_fn = value_and_grad(make_loss_fn(model))
+    rows = MESH_STEP_BATCH // G
+    A = None
+    for i in range(G):
+        _, g = grad_fn(state.params, {k: v[rows * i:rows * (i + 1)]
+                                      for k, v in batch.items()})
+        a = [x.float().abs() / G for x in tree_flatten(g)[0]]
+        A = a if A is None else [x + y for x, y in zip(A, a)]
+        del g
+    s = min(1.0, tcfg.grad_clip / (float(wm["grad_norm"]) + 1e-9))
+    lr = float(wm["lr"])
+    worst, apart = 0.0, 0
+    for got, ref, a, shd in zip(tree_flatten(new.opt.master)[0],
+                                tree_flatten(want.opt.master)[0], A, flat_shd):
+        sl = local_slices(tuple(ref.shape), shd)
+        d = (got.to_local().double() - ref[sl].double()).abs()
+        ratio = float((d / mesh_step_bound(torch, lr, s, a[sl], ref[sl]))
+                      .max())
+        worst = max(worst, ratio)
+        apart += int((d > 0).sum())
+    if not worst <= 1.0:
+        fail(f"mesh phase: a master weight of rank 0's shard lies {worst:.3g}"
+             " of its reassociation bound from the one-device step's")
+    p_apart = 0
+    for got, ref in zip(tree_flatten(new.params)[0],
+                        tree_flatten(want.params)[0]):
+        far, bad, _ = bf16_closeness(got, ref, floor=0.0)
+        if far:
+            fail(f"mesh phase: {far} parameters beyond one bf16 ulp of the "
+                 "one-device step's")
+        p_apart += int((got != ref).sum())
+    report.update(one_device_loss=float(wm["loss"]), loss_rel=rel,
+                  master_worst_of_bound=worst, master_apart=apart,
+                  params_apart=p_apart, oracle_grad_accum=G)
+    return report
+
+
+def mesh_sync(torch) -> None:
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def mesh_rank(rank: int, world: int, store: str, root: str, out_dir: str,
+              device: str, reduced: bool) -> None:
+    """One rank of the mesh phase: a gloo process group on a ``FileStore``
+    (every rank on ``device``: the one card, or the CPU in a rehearsal),
+    the (2, 2) mesh, then :func:`mesh_ep`, :func:`mesh_restore` and
+    :func:`mesh_step`; its report goes to ``out_dir/rank<r>.json``.
+    ``reduced`` (a CPU rehearsal) takes every configuration's reduced
+    widths."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    global DEVICE
+    DEVICE = device
+    if reduced:
+        from repro_torch.configs import registry
+        full = registry.get_config
+        registry.get_config = lambda arch: full(arch).reduced()
+    if device != "cpu":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh(torch.device(device).type, MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        t0 = time.perf_counter()
+        report = dict(rank=rank, coordinate=list(mesh.get_coordinate()))
+        report["ep"] = mesh_ep(torch, mesh)
+        report["restore"] = mesh_restore(torch, mesh, root)
+        report["step"] = mesh_step(torch, mesh)
+        report["rank_s"] = time.perf_counter() - t0
+        if device != "cpu":
+            report["peak_bytes"] = torch.cuda.max_memory_allocated()
+        (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_phase(torch) -> tuple:
+    """The device mesh (see the module docstring): a full-width qwen2-0.5b
+    ``TrainState`` saved once, then four spawned gloo ranks on ``cuda:0``
+    (:func:`mesh_rank`).  The parent built every kernel; the ranks load the
+    libraries.  A rank that fails fails the phase.  B7's and B8's device
+    times at the EP path's shapes (E_loc = 32 experts, C = 120 at prefill,
+    8 at decode) are then taken here, alone on the card."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.models import get_model
+    from repro_torch.train import init_train_state
+
+    t_start = time.perf_counter()
+    work = Path(tempfile.mkdtemp(prefix="mesh_phase_"))
+    try:
+        model = get_model(get_config(MESH_STEP_ARCH), device=DEVICE)
+        state = init_train_state(
+            model, TrainConfig(),
+            torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+        t0 = time.perf_counter()
+        ckpt.save(work / "ckpt", state, 1)
+        save_s = time.perf_counter() - t0
+        del state, model
+        torch.cuda.empty_cache()
+        world = int(np.prod(MESH_SHAPE))
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            mesh_rank, args=(world, str(work / "store"), str(work / "ckpt"),
+                             str(work), DEVICE, MESH_REDUCED),
+            nprocs=world, start_method="spawn", join=False)
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    fail(f"mesh phase: ranks still running after "
+                         f"{MESH_TIMEOUT_S:.0f} s")
+        except ProcessException as err:
+            fail(f"mesh phase: a rank failed: {err}")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.terminate()
+                    proc.join(5)
+        ranks_s = time.perf_counter() - t0
+        reports = [json.loads((work / f"rank{r}.json").read_text())
+                   for r in range(world)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_start
+
+    ep = [r["ep"] for r in reports]
+    launches = {name: sum(e["launches"][name] for e in ep)
+                for name in ("moe_gmm", "moe_gmm_down")}
+    dev = torch.device(DEVICE)
+    cfg = get_config(MESH_ARCH)
+    E_loc = cfg.moe.num_experts // MESH_SHAPE[1]
+    D, Fe = cfg.d_model, cfg.moe.d_ff
+    gen = torch.Generator(device=dev).manual_seed(MESH_SEED)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev  # noqa: E731
+                                     ).bfloat16()
+    times = {}
+    for phase, C in ep[0]["capacity"].items():
+        x, h = rnd(E_loc, C, D), rnd(E_loc, C, Fe)
+        w1, w3, w2 = rnd(E_loc, D, Fe), rnd(E_loc, D, Fe), rnd(E_loc, Fe, D)
+        times[phase] = {
+            "moe_gmm": gmm_times(torch, gmm, "moe_gmm", (x, w1, w3), C),
+            "moe_gmm_down": gmm_times(torch, gmm, "moe_gmm_down", (h, w2), C)}
+        del x, h, w1, w3, w2
+    torch.cuda.empty_cache()
+    report = dict(shape=list(MESH_SHAPE), backend="gloo", arch=MESH_ARCH,
+                  save_s=save_s, ranks_s=ranks_s, phase_s=phase_s,
+                  budget_s=MESH_BUDGET_S, ranks=reports, launches=launches,
+                  kernel_times=times)
+    return launches, report
+
+
 def hopper_smem_line() -> str:
     """The dynamic shared memory of B4, B7, B8 and B5 by configuration
     (ptxas reports static shared memory only)."""
@@ -4711,6 +5174,49 @@ def main() -> None:
     train = train_phase(torch, fwd["cross_entropy"])
     train["phase_s"] = time.perf_counter() - t0
     print(f"{FWD_ARCH} train: " + json.dumps(train))
+
+    torch.cuda.empty_cache()
+    print(f"mesh phase: {torch.cuda.memory_allocated()} bytes allocated "
+          "before it")
+    mesh_launches, mesh = mesh_phase(torch)
+    print("mesh phase: " + json.dumps(mesh))
+    r0 = mesh["ranks"][0]
+    print(f"mesh phase ({card}): {mesh['phase_s']:.1f} s (budget "
+          f"{MESH_BUDGET_S:.0f} s), wall times only (four ranks time-slice "
+          f"the card): save {mesh['save_s']:.1f} s, ranks {mesh['ranks_s']:.1f}"
+          " s; B7 / B8 launches a rank "
+          + ", ".join(f"{r['ep']['launches']['moe_gmm']} / "
+                      f"{r['ep']['launches']['moe_gmm_down']}"
+                      for r in mesh["ranks"])
+          + f" against {r0['ep']['layers']} layers x {len(MESH_BATCHES)} "
+          f"batches = {r0['ep']['per_formula']}; y within "
+          + ", ".join(f"{k} {max(r['ep']['worst'][k]['ulps'] for r in mesh['ranks']):.3g}"
+                      for k in MESH_BATCHES)
+          + f" bf16 ulps of max|y| (limit {MESH_Y_ULPS}); EP call wall ms "
+          "p50 " + ", ".join(f"{k} {v:.2f}" for k, v in
+                             r0["ep"]["wall_ms_p50"].items()))
+    print("mesh phase restore per rank (s, bytes read of whole): " + "; ".join(
+        f"{r['restore']['seconds']:.2f}, {r['restore']['bytes_read']} of "
+        f"{r['restore']['bytes_whole']}" for r in mesh["ranks"]))
+    st = r0["step"]
+    print(f"mesh phase step: loss {st['loss']!r} against the one-device "
+          f"step's {st['one_device_loss']!r} (rel {st['loss_rel']:.3g}); "
+          f"rank 0's master shard at {st['master_worst_of_bound']:.3g} of "
+          f"its bound ({st['master_apart']} elements apart), parameters "
+          f"apart {st['params_apart']}; step wall s "
+          + ", ".join(f"{r['step']['step_s']:.2f}" for r in mesh["ranks"])
+          + "; accumulator bytes a rank "
+          + ", ".join(str(r["step"]["accumulator_bytes"])
+                      for r in mesh["ranks"])
+          + f" of {st['accumulator_bytes_whole']} unsharded")
+    for name in ("moe_gmm", "moe_gmm_down"):
+        timings[name]["mesh_phase"] = dict(
+            launches=mesh_launches[name],
+            launches_per_rank=[r["ep"]["launches"][name]
+                               for r in mesh["ranks"]],
+            max_abs_err=max(r["ep"]["held"][name]["max_abs_err"]
+                            for r in mesh["ranks"]),
+            shapes={k: v[name] for k, v in mesh["kernel_times"].items()})
 
     meta = {"score_fuse": ("cuda", "src/repro_torch/csrc/score_fuse.cu",
                            "src/repro/kernels/score_fuse.py:189"),

@@ -16,9 +16,9 @@ restores in the other: ``restore`` checks only the number of leaves, and
 ``manifest["treedef"]`` holds each package's own description of the tree.
 
 ``restore`` puts each leaf on the device and dtype of the matching leaf of
-``like`` (on one process, the counterpart of the reference's
-reshard-on-restore).  Restoring onto a mesh (``shardings=``) needs
-``parallel/sharding.py``, which is not ported yet (ROADMAP A.9c).
+``like``; with ``shardings=`` (a tree of ``parallel.sharding.NamedSharding``)
+each leaf comes back as a DTensor on its sharding's mesh, and each rank
+reads only its own slice of the file (the reference's reshard-on-restore).
 """
 from __future__ import annotations
 
@@ -102,13 +102,13 @@ def restore(root: str | pathlib.Path, like: Any, *, step: int | None = None,
             shardings: Any = None) -> tuple[Any, int]:
     """Load a checkpoint into the structure of ``like``.
 
-    ``like`` is a tree of tensors; each leaf lands on the device and in
-    the dtype of ``like``'s leaf.  Returns ``(tree, step)``.
+    ``like`` is a tree of tensors; each leaf takes the dtype of ``like``'s
+    leaf and, without ``shardings``, its device.  ``shardings``, a tree of
+    ``NamedSharding`` with one leaf a leaf of ``like`` (told by its
+    ``mesh``, as in the reference), puts each leaf on its mesh as a DTensor
+    with the sharding's placements: each rank maps the file and reads only
+    its own slice.  Returns ``(tree, step)``.
     """
-    if shardings is not None:
-        raise NotImplementedError("restoring onto a mesh (shardings=) needs "
-                                  "parallel/sharding.py, which is not ported "
-                                  "yet (ROADMAP A.9c)")
     root = pathlib.Path(root)
     if step is None:
         step = latest_step(root)
@@ -121,10 +121,38 @@ def restore(root: str | pathlib.Path, like: Any, *, step: int | None = None,
         raise ValueError(
             f"checkpoint has {manifest['num_leaves']} leaves, "
             f"target structure has {len(like_leaves)}")
-    out = [torch.from_numpy(np.load(d / f"leaf_{i:05d}.npy"))
-           .to(device=tgt.device, dtype=tgt.dtype)
-           for i, tgt in enumerate(like_leaves)]
+    if shardings is None:
+        out = [torch.from_numpy(np.load(d / f"leaf_{i:05d}.npy"))
+               .to(device=tgt.device, dtype=tgt.dtype)
+               for i, tgt in enumerate(like_leaves)]
+        return rebuild(out), step
+    shard_leaves = tree_flatten(shardings)[0]
+    for shd in shard_leaves:
+        if not hasattr(shd, "mesh"):
+            raise TypeError(f"a leaf of shardings is a {type(shd).__name__}, "
+                            "not a NamedSharding")
+    if len(shard_leaves) != len(like_leaves):
+        raise ValueError(f"shardings has {len(shard_leaves)} leaves, the "
+                         f"target structure {len(like_leaves)}")
+    out = [_restore_shard(d / f"leaf_{i:05d}.npy", tgt.dtype, shd)
+           for i, (tgt, shd) in enumerate(zip(like_leaves, shard_leaves))]
     return rebuild(out), step
+
+
+def _restore_shard(path: pathlib.Path, dtype: torch.dtype, sharding):
+    """One leaf as a DTensor of ``sharding``: this rank's slice of the
+    mapped file, cast on the host to ``dtype`` and moved to the rank's
+    device."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.sharding import local_slices
+    arr = np.load(path, mmap_mode="r")
+    mesh = sharding.mesh
+    local = np.array(arr[local_slices(arr.shape, sharding)])  # reads the slice
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    t = torch.from_numpy(local).to(dtype=dtype).to(dev)
+    return DTensor.from_local(t, mesh, sharding.placements, run_check=False)
 
 
 class AsyncCheckpointer:

@@ -99,7 +99,8 @@ def build(*names: str) -> dict[str, ctypes.CDLL]:
 
 
 def library(name: str, signatures: dict[str, tuple[int, ...]]) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use.
+    """The loaded library of ``csrc/<name>.cu``, built on first use (or
+    loaded, where a build of the same sources is already on disk).
 
     ``signatures`` maps each C entry point to its count of pointer, int and
     (optionally) float arguments (the stream comes last); see
@@ -107,7 +108,13 @@ def library(name: str, signatures: dict[str, tuple[int, ...]]) -> ctypes.CDLL:
     """
     lib = _libs.get(name)
     if lib is None:
-        lib = build(name)[name]
+        built = _output(name)      # named by the digest of these sources
+        with _lock:
+            if name not in _libs and built.exists():
+                # built by another process of this checkout (the ranks of a
+                # mesh load what their parent built): load it, do not rebuild
+                _libs[name] = ctypes.CDLL(str(built))
+        lib = _libs.get(name) or build(name)[name]
     for fn, counts in signatures.items():
         declare(getattr(lib, fn), *counts)
     return lib

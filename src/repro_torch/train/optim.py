@@ -55,9 +55,13 @@ def global_norm(tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(grads, params, opt: OptState, tcfg: TrainConfig):
-    """One AdamW step.  Returns (new_params, new_opt, metrics)."""
-    gnorm = global_norm(grads)
+def adamw_update(grads, params, opt: OptState, tcfg: TrainConfig,
+                 gnorm: torch.Tensor | None = None):
+    """One AdamW step.  Returns (new_params, new_opt, metrics).  Every leaf
+    is updated elementwise, so the leaves may be matching shards; ``gnorm``
+    is then the norm of the whole gradient (``global_norm(grads)`` when
+    ``None``)."""
+    gnorm = global_norm(grads) if gnorm is None else gnorm
     dev = gnorm.device
     f = lambda v: torch.full((), v, dtype=torch.float32, device=dev)  # noqa: E731
     scale = (torch.clamp(f(tcfg.grad_clip) / (gnorm + f(1e-9)), max=1.0)

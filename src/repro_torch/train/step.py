@@ -10,19 +10,31 @@ flash-attention kernel B4, which has no backward (as in the reference) and
 raises under autograd.  ``build_prefill_step`` / ``build_decode_step`` wrap
 the serving paths.  The vision frontend's patch positions are cut from the
 logits (or the hidden states) before the loss, as in the reference.
-Sharded gradient accumulators (``grad_shardings``) are not ported yet.
+
+On a mesh, ``build_train_step(grad_shardings=...)`` (the optimizer's
+shardings, as the reference's cells pass them) keeps each float32
+accumulator and each optimizer moment as its shard only: each rank takes
+the gradients of its shard of the batch, and each microbatch's are
+reduce-scattered into the accumulators (ZeRO-2); the norm and AdamW run on
+the shards, and the new parameters come back replicated.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import TrainConfig
 from ..models import lm
 from ..models.api import Model
 from ..models.param import tree_leaves, tree_map
+from ..parallel.collectives import (full_tensor, gather_shards, mesh_groups,
+                                    reduce_shards)
+from ..parallel.sharding import (NamedSharding, P, local_shape, local_slices,
+                                 opt_shardings, param_shardings)
 from . import optim
 
 
@@ -144,11 +156,10 @@ def build_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
     microbatch losses over G.  Metrics: ``loss``, ``ce``, ``aux`` (means
     over microbatches), ``grad_norm`` and ``lr``.
     """
-    if grad_shardings is not None:
-        raise NotImplementedError("sharded gradient accumulators are not "
-                                  "ported yet (ROADMAP A.9c)")
     grad_fn = value_and_grad(make_loss_fn(model))
     G = tcfg.grad_accum
+    if grad_shardings is not None:
+        return _sharded_train_step(grad_fn, tcfg, grad_shardings)
 
     def train_step(state: TrainState, batch: dict):
         params = state.params
@@ -173,6 +184,137 @@ def build_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
                        for k in per_step[0]}
         new_params, new_opt, opt_metrics = optim.adamw_update(
             grads, params, state.opt, tcfg)
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return TrainState(new_params, new_opt), metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# sharded accumulators (a mesh)
+# ---------------------------------------------------------------------------
+
+def train_state_shardings(model: Model, mesh, tcfg: TrainConfig) -> TrainState:
+    """A ``TrainState`` of shardings, as the reference's cells build it:
+    ``param_shardings`` for the parameters, ``opt_shardings`` (ZeRO-1 per
+    ``tcfg.zero1``) for the moments and the master copy, the count
+    replicated.  Its ``opt.mu`` is the step's ``grad_shardings``."""
+    oshard = opt_shardings(model.structure(), mesh, zero1=tcfg.zero1)
+    return TrainState(
+        params=param_shardings(model.structure(), mesh),
+        opt=optim.OptState(mu=oshard, nu=oshard,
+                           master=oshard if tcfg.master_weights else None,
+                           count=NamedSharding(mesh, P())))
+
+
+def _sharded_train_step(grad_fn, tcfg: TrainConfig, grad_shardings):
+    """The step with ``grad_shardings``' accumulators (see the module's
+    docstring).  ``state.params`` are whole tensors on every rank (a
+    DTensor leaf is gathered first); ``state.opt``'s trees are DTensors of
+    ``grad_shardings`` (``parallel.sharding.shard_tree``); the batch's
+    leaves are DTensors whose batch dim is sharded over some mesh dims
+    (``batch_shardings``), or whole tensors on a mesh of one rank.  The
+    loss of the whole batch is the mean of the ranks' losses over the mesh
+    dims the batch is split on, and so is each gradient."""
+    G = tcfg.grad_accum
+    flat_shd, _ = optim.tree_flatten(grad_shardings)
+    mesh = flat_shd[0].mesh
+    groups = [group for _, _, group in mesh_groups(mesh)]
+
+    def local_batch(batch):
+        dims = None
+        out = {}
+        for k, v in batch.items():
+            if isinstance(v, DTensor):
+                here = {i for i, pl in enumerate(v.placements)
+                        if pl == Shard(0) and mesh.shape[i] > 1}
+                v = v.to_local()
+            elif mesh.size() == 1:
+                here = set()
+            else:
+                raise TypeError(f"batch[{k!r}] is a {type(v).__name__} on a "
+                                f"mesh of {mesh.size()} ranks; pass DTensors "
+                                "(batch_shardings)")
+            if dims is not None and here != dims:
+                raise ValueError("the batch's leaves are split over "
+                                 "different mesh dims")
+            dims = here
+            out[k] = v
+        return out, dims
+
+    def mean_over(x: torch.Tensor, batch_dims, n_b: int) -> torch.Tensor:
+        x = x.clone()
+        for i, _, group in mesh_groups(mesh):
+            if i in batch_dims:
+                dist.all_reduce(x, group=group)
+        return x / n_b if n_b > 1 else x
+
+    def train_step(state: TrainState, batch: dict):
+        params = tree_map(lambda p: full_tensor(p)
+                          if isinstance(p, DTensor) else p, state.params)
+        flat_p, rebuild = optim.tree_flatten(params)
+        batch, batch_dims = local_batch(batch)
+        n_b = 1
+        for i in batch_dims:
+            n_b *= mesh.shape[i]
+        micro = {k: v.reshape(G, v.shape[0] // G, *v.shape[1:])
+                 for k, v in batch.items()}
+        acc = [torch.zeros(local_shape(tuple(p.shape), s), dtype=torch.float32,
+                           device=p.device)
+               for p, s in zip(flat_p, flat_shd)]
+        loss, per_step = None, []
+        for i in range(G):
+            (l_i, m_i), g_i = grad_fn(params, {k: v[i] for k, v in micro.items()})
+            l_i = mean_over(l_i, batch_dims, n_b)
+            loss = l_i / G if loss is None else loss + l_i / G
+            per_step.append({k: mean_over(v, batch_dims, n_b)
+                             for k, v in m_i.items()})
+            for a, g, s in zip(acc, optim.tree_flatten(g_i)[0], flat_shd):
+                g = reduce_shards(g.float() / G, s.placements, mesh, batch_dims)
+                a.add_(g / n_b if n_b > 1 else g)
+            del g_i
+        metrics = {k: torch.stack([m[k] for m in per_step]).mean()
+                   for k in per_step[0]}
+
+        # the norm of the whole gradient: each shard's squares once (a
+        # shard held by r ranks counts 1 / r on each), summed over the mesh
+        sq = []
+        for a, s in zip(acc, flat_shd):
+            rep = 1
+            for i, pl in enumerate(s.placements):
+                if not isinstance(pl, Shard):
+                    rep *= mesh.shape[i]
+            sq.append(a.square().sum() / rep if rep > 1 else a.square().sum())
+        total = torch.stack(sq).sum()
+        for group in groups:
+            dist.all_reduce(total, group=group)
+        gnorm = torch.sqrt(total)
+
+        def local(tree):
+            return [t.to_local() for t in optim.tree_flatten(tree)[0]]
+
+        local_p = [p[local_slices(tuple(p.shape), s)]
+                   for p, s in zip(flat_p, flat_shd)]
+        opt = state.opt
+        shard_opt = optim.OptState(
+            mu=rebuild(local(opt.mu)), nu=rebuild(local(opt.nu)),
+            master=rebuild(local(opt.master)) if opt.master is not None
+            else None, count=opt.count)
+        new_p, new_opt, opt_metrics = optim.adamw_update(
+            rebuild(acc), rebuild(local_p), shard_opt, tcfg, gnorm=gnorm)
+        new_params = rebuild([
+            gather_shards(t, s.placements, mesh)
+            for t, s in zip(optim.tree_flatten(new_p)[0], flat_shd)])
+
+        def as_dtensors(tree):
+            return rebuild([
+                DTensor.from_local(t, s.mesh, s.placements, run_check=False)
+                for t, s in zip(optim.tree_flatten(tree)[0], flat_shd)])
+
+        new_opt = optim.OptState(
+            mu=as_dtensors(new_opt.mu), nu=as_dtensors(new_opt.nu),
+            master=as_dtensors(new_opt.master)
+            if new_opt.master is not None else None, count=new_opt.count)
         metrics = dict(metrics, loss=loss, **opt_metrics)
         return TrainState(new_params, new_opt), metrics
 

@@ -1308,3 +1308,73 @@ def test_elastic_trainer_on_the_card_matches_cpu(cuda, tmp_path):
     print(f"losses card {lg}, CPU {lc}, relative {rel}")
     assert rel[0] <= 1e-3 and rel.max() <= 5e-2
     assert lg[-1] < lg[0] and lc[-1] < lc[0]
+
+
+def test_mesh_ep_layer_on_two_gloo_ranks(cuda, tmp_path):
+    """The expert-parallel MoE layer (reduced width) on a (1, 2) mesh of two
+    gloo ranks sharing ``cuda:0``: B7 and B8 once each a rank, each launch
+    within one bf16 ulp (or 1e-3 * max) of its plain version, y within 2
+    bf16 ulps of max|y| of the one-device kernel route, aux within 1e-6
+    (``tests/_torch_mesh_ranks.py``'s ``ep_on_card``).  The parent builds
+    B7/B8 first; the ranks load the library."""
+    import _torch_mesh_ranks as ranks
+    _build.build("moe_gmm")
+    ranks.spawn("ep_on_card", tmp_path, 0, mesh_shape=(1, 2), device="cuda",
+                timeout=120)
+
+
+def test_mesh_tp_project_rs_on_two_gloo_ranks(cuda, tmp_path):
+    """``tp_project_rs``'s ``tp_impl="shardmap"`` path (the local partial
+    einsum, a reduce-scatter over the sequence dim, an all-gather in the
+    backward) on a (1, 2) mesh of two gloo ranks sharing ``cuda:0``: every
+    output and gradient shard within 1e-5 of max|plain einsum| on the card
+    (``tp_project_rs_on_ranks``; its fallbacks run DTensor's own
+    redistributions, held on the CPU only)."""
+    import _torch_mesh_ranks as ranks
+    ranks.spawn("tp_project_rs_on_ranks", tmp_path, False, mesh_shape=(1, 2),
+                device="cuda", timeout=120)
+
+
+def test_mesh_one_rank_nccl_equals_mesh_free(cuda, tmp_path):
+    """On a one-rank NCCL (1, 1) mesh on the card, ``constrain``,
+    ``apply_moe`` (through B7/B8) and ``restore(shardings=)`` equal the
+    mesh-free path bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.param import init_params, tree_map
+    from repro_torch.parallel.sharding import NamedSharding, P
+
+    if dist.is_initialized():
+        pytest.skip("a default process group already exists in this process")
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(),
+                              use_pallas=True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(tmoe.moe_specs(cfg), gen, device=cuda)
+    x = torch.randn((4, 32, cfg.d_model), generator=gen, device=cuda).bfloat16()
+    state = {"moe": params, "x": x}
+    ckpt.save(tmp_path, state, 2)
+    plain, _ = ckpt.restore(tmp_path, state)
+    mesh = make_host_mesh()
+    try:
+        assert dist.get_backend() == "nccl"
+        meshed = dataclasses.replace(cfg, mesh=mesh)
+        assert tlayers.constrain(x, meshed, ("dp", "sp", None)) is x
+        tgmm.moe_gmm.launches = tgmm.moe_gmm_down.launches = 0
+        y0, a0 = tmoe.apply_moe(cfg, params, x)
+        y1, a1 = tmoe.apply_moe(meshed, params, x)
+        assert (tgmm.moe_gmm.launches, tgmm.moe_gmm_down.launches) == (2, 2)
+        assert torch.equal(y0, y1) and torch.equal(a0, a1)
+        shardings = tree_map(lambda t: NamedSharding(mesh, P()), state)
+        got, step = ckpt.restore(tmp_path, state, shardings=shardings)
+        assert step == 2
+        for a, b in zip(got["moe"].values(), plain["moe"].values()):
+            local = a.to_local()
+            assert local.device.type == "cuda" and torch.equal(local, b)
+        assert torch.equal(got["x"].to_local(), plain["x"])
+    finally:
+        dist.destroy_process_group()

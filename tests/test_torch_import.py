@@ -79,7 +79,9 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.elastic", "repro_torch.elastic.cluster",
            "repro_torch.analysis", "repro_torch.analysis.framework",
            "repro_torch.analysis.cli", "repro_torch.analysis.racecheck",
-           "repro_torch.analysis.rules"]
+           "repro_torch.analysis.rules", "repro_torch.parallel",
+           "repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
+           "repro_torch.launch.mesh"]
 
 #: names the import check also reaches, beside the modules
 NAMES = [("repro_torch.parallel.compression", n)
@@ -87,6 +89,17 @@ NAMES = [("repro_torch.parallel.compression", n)
                    "allreduce_compressed", "allreduce_exact")]
 NAMES += [("repro_torch.ckpt", n)
           for n in ("save", "restore", "latest_step", "AsyncCheckpointer")]
+NAMES += [("repro_torch.parallel.sharding", n)
+          for n in ("PartitionSpec", "NamedSharding", "placements",
+                    "LOGICAL_RULES", "dp_axes", "dp_size", "param_pspec",
+                    "opt_pspec", "param_shardings", "opt_shardings",
+                    "batch_pspec", "batch_shardings", "cache_shardings",
+                    "constrain_activation", "local_slices", "shard_tree")]
+NAMES += [("repro_torch.launch.mesh", n)
+          for n in ("make_production_mesh", "make_host_mesh")]
+NAMES += [("repro_torch.parallel.collectives", n)
+          for n in ("psum", "psum_scatter", "reduce_shards", "gather_shards",
+                    "full_tensor")]
 NAMES += [("repro_torch.elastic", n)
           for n in ("ElasticConfig", "Node", "StepEvent",
                     "SpotElasticTrainer")]

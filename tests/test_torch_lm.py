@@ -376,15 +376,54 @@ def test_unported_paths_raise():
     pos = torch.arange(4, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="no backward"):
         tattn.attend(q, k, k, pos, pos, use_pallas=True)
-    # the mesh (ROADMAP A.9c): activation sharding, the expert-parallel MoE
-    # path and sharded gradient accumulators
-    _, ct = _cfgs()
-    meshed = dataclasses.replace(ct, mesh=object())
-    x = torch.zeros((1, 2, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="A.9c"):
-        tlayers.constrain(x, meshed, ("dp", "sp", None))
-    with pytest.raises(NotImplementedError, match="A.9c"):
-        tmoe.apply_moe(meshed, {}, x)
-    with pytest.raises(NotImplementedError, match="A.9c"):
-        tstep.build_train_step(torch_model(ct, device="cpu"), TrainConfig(),
-                               grad_shardings={})
+    # the mesh: on a (1, 1) mesh, activation sharding, the MoE layer and the
+    # step with sharded accumulators equal the mesh-free path bit for bit
+    import torch.distributed as dist
+    from repro_torch._tree import tree_flatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.param import init_params
+    from repro_torch.parallel.sharding import opt_shardings, shard_tree
+    from repro_torch.train import TrainState, init_train_state
+    from repro_torch.train.optim import OptState
+
+    ct = dataclasses.replace(_cfgs()[1], use_pallas=False)
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(device="cpu")
+    try:
+        meshed = dataclasses.replace(ct, mesh=mesh)
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal((2, 8, ct.d_model))
+                             .astype(np.float32)).bfloat16()
+        assert tlayers.constrain(x, meshed, ("dp", "sp", None)) is x
+        moe_p = init_params(tmoe.moe_specs(ct), torch.Generator().manual_seed(0),
+                            device="cpu")
+        y0, a0 = tmoe.apply_moe(ct, moe_p, x)
+        y1, a1 = tmoe.apply_moe(meshed, moe_p, x)
+        assert torch.equal(y0, y1) and torch.equal(a0, a1)
+
+        model = torch_model(ct, device="cpu")
+        tcfg = TrainConfig(grad_accum=2)
+        state = init_train_state(model, tcfg, torch.Generator().manual_seed(1))
+        batch = {k: torch.from_numpy(rng.integers(0, ct.vocab_size, (4, 8)))
+                 for k in ("tokens", "labels")}
+        want, wm = tstep.build_train_step(model, tcfg)(state, batch)
+        oshard = opt_shardings(model.structure(), mesh)
+        sharded = TrainState(state.params, OptState(
+            mu=shard_tree(state.opt.mu, oshard),
+            nu=shard_tree(state.opt.nu, oshard),
+            master=shard_tree(state.opt.master, oshard),
+            count=state.opt.count))
+        got, gm = tstep.build_train_step(model, tcfg, grad_shardings=oshard)(
+            sharded, batch)
+        for key in ("loss", "grad_norm", "lr", "ce", "aux"):
+            assert torch.equal(gm[key], wm[key]), key
+        for a, b in zip(tree_flatten(got.params)[0],
+                        tree_flatten(want.params)[0]):
+            assert torch.equal(a, b)
+        for tree_a, tree_b in ((got.opt.mu, want.opt.mu),
+                               (got.opt.nu, want.opt.nu),
+                               (got.opt.master, want.opt.master)):
+            for a, b in zip(tree_flatten(tree_a)[0], tree_flatten(tree_b)[0]):
+                assert a.device_mesh is mesh and torch.equal(a.to_local(), b)
+    finally:
+        dist.destroy_process_group()
