@@ -8,7 +8,8 @@ RWKV6-7B, RecurrentGemma-2B), the encoder-decoder and vision-prefix
 families (seamless-m4t-medium, llava-next-mistral-7b) served and run
 forward, qwen2-0.5b's full-sequence forward and training step, and the
 device mesh (the expert-parallel MoE layer, sharded restore and a step
-with sharded accumulators on four ranks), on one NVIDIA GPU.
+with sharded accumulators on four ranks), and three launch cells held
+against their roofline bounds, on one NVIDIA GPU.
 
 Run from the repository root with no arguments::
 
@@ -299,6 +300,34 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    formula, the restore's seconds and bytes a rank, the accumulators'
    resident bytes a rank; then B7's and B8's device times alone at the EP
    shapes.
+8c. Launch phase (``launch_phase``, 150 s budget for the cells, the
+   wait for the host work apart): the launch cells of
+   ``repro_torch.launch.cells`` built by ``build_cell`` on
+   ``make_host_mesh()`` (one rank, NCCL on a ``HashStore``; the phase ends
+   the group) and run through ``materialize_cell`` and the cell's step:
+   (a) qwen2-0.5b ``train_4k`` cut to a global batch of 8 (S = 4096,
+   ``pick_grad_accum``'s microbatches, plain route); (b)
+   DeepSeek-V2-Lite ``prefill_32k`` cut to 1 x 8192 (at S = 32768 a call
+   took 14.9 s, past the budget) and (c) ``decode_32k`` cut to a batch of
+   16 (a 32768-deep cache, index 32767), both with ``use_pallas=True`` on
+   one draw of the weights.  Per cell, one warm call, then timed calls
+   (three training steps), finite outputs; on the host, in processes of
+   their own started with the phase and finished before the first timed
+   call (they run beside cell (a)'s arguments and warm call only),
+   ``roofline_cell`` of the same cut cells (one rank's step traced on
+   meta tensors) and their ``argument_bytes``.  Then: the arguments'
+   bytes equal the dry-run's, and the allocator's requested bytes for
+   them their unrounded sum (its allocated bytes at least the 512-byte
+   rounded sum); no step faster than ``max(compute_s, memory_floor_s)``.
+   (a): ``FlopCounterMode`` around the warm step (the step function on
+   the timed step's arguments) counts exactly the meta trace's FLOPs.
+   (b), (c): B7 and B8 launch 26 times each a step (the counters set to 0
+   just before each timed call and read just after); on the warm call
+   each launch is held against its plain version (one bf16 ulp or 1e-3 *
+   max).  Beside the traces the entry points run on the host, each of which
+   must exit 0: ``launch.dryrun`` (DeepSeek-V2-Lite ``decode_32k`` on the
+   fake 16 x 16 group), ``launch.roofline`` (qwen2-0.5b ``train_4k``),
+   then ``launch.report``.
 9. Print B4's time over SDPA's, B8's over ``torch.bmm``'s and B7's over
    ``torch.bmm(x, cat([w1, w3], -1))``'s (the two products alone, a
    yardstick, not ``library_ms``: no one call computes B7), prefill and
@@ -320,6 +349,7 @@ the ``src/repro_torch`` package is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -516,12 +546,16 @@ PREFIX_BUDGET_S = 120.0
 # B4's plain version takes ~0.1 s a call at llava's shape: timed over fewer
 PREFIX_PLAIN_REPS = 5
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, float32
-# rate outside the tensor cores, dense bf16 tensor-core rate.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-BF16_OPS_PER_S = 989e12
-TF32_OPS_PER_S = 495e12
+# H100 SXM published peaks (NVIDIA data sheet), from the port's hardware
+# model: HBM3 bandwidth, float32 rate outside the tensor cores, dense bf16
+# and tf32 tensor-core rates.  Without the repo beside this script the
+# import fails and the script stops there, printing no result.
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch import hw as _hw  # noqa: E402
+HBM_BYTES_PER_S = _hw.HBM_BW
+FP32_OPS_PER_S = _hw.PEAK_FLOPS_FP32
+BF16_OPS_PER_S = _hw.PEAK_FLOPS_BF16
+TF32_OPS_PER_S = _hw.PEAK_FLOPS_TF32
 
 # the first versions' device times of the kernels rebuilt since, as
 # recorded in PERF.md (measured on one NVIDIA H100 80GB HBM3, 700 W),
@@ -619,7 +653,7 @@ def same_bits(a, b) -> bool:
         ((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def profiled(fn, calls: int, tries: int = 3) -> dict:
+def profiled(fn, calls: int, tries: int = 6) -> dict:
     """Every device item (kernel, memcpy, memset) of ``calls`` calls of
     ``fn`` from a ``torch.profiler`` trace: ``{name: (launches a call, device
     ms a call, share of its launches recorded)}``.  The profiler can lose
@@ -4941,6 +4975,412 @@ def mesh_phase(torch) -> tuple:
     return launches, report
 
 
+# ---------------------------------------------------------------------------
+# launch phase: the launch cells on one rank
+# ---------------------------------------------------------------------------
+
+LAUNCH_BUDGET_S = 150.0
+LAUNCH_MOE_ARCH = "deepseek-v2-lite-16b"
+# key -> (arch, shape, cut batch, cut sequence, through the kernels);
+# prefill_32k at S = 32768 took 14.9 s a call on the card (the plain MLA
+# attend's float32 scores), three calls past the phase's budget, so its
+# sequence is cut to 8192
+LAUNCH_CELLS = {"a": ("qwen2-0.5b", "train_4k", 8, 4096, False),
+                "b": (LAUNCH_MOE_ARCH, "prefill_32k", 1, 8192, True),
+                "c": (LAUNCH_MOE_ARCH, "decode_32k", 16, 32768, True)}
+LAUNCH_TIMED = {"train": 3, "prefill": 2, "decode": 5}   # after one warm call
+LAUNCH_SEED = 3
+ALLOC_GRANULE = 512           # the caching allocator's block rounding
+LAUNCH_ENTRY_TIMEOUT_S = 900.0
+LAUNCH_ENTRY_POINTS = {
+    "dryrun": ["--arch", LAUNCH_MOE_ARCH, "--shape", "decode_32k",
+               "--single-pod-only"],
+    "roofline": ["--arch", "qwen2-0.5b", "--shape", "train_4k"],
+}
+
+
+def host_process(args, **kw):
+    """A process on the host with the repo's packages and no card."""
+    import os
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}",
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, **kw)
+
+
+def entry_point(name: str, args):
+    """``python -m repro_torch.launch.<name>`` on the host."""
+    return host_process(["-m", f"repro_torch.launch.{name}", *args])
+
+
+def finish_entry_point(name: str, proc, timeout: float) -> list[str]:
+    """Wait for ``proc``; fail unless it exits 0.  Returns its summary
+    lines (``[ok]`` / ``[skip]`` / ``[FAIL]``, the dry-run summary, table
+    rows)."""
+    try:
+        out, err = proc.communicate(timeout=max(timeout, 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"{name} still running after {timeout:.0f} s")
+    if proc.returncode != 0:
+        fail(f"{name} exited {proc.returncode}: {out[-1500:]} {err[-1500:]}")
+    return [line for line in out.splitlines()
+            if line.startswith(("[ok]", "[skip]", "[FAIL]", "dry-run summary",
+                                "|"))]
+
+
+def launch_spec(key: str, device: str):
+    """(config, cut shape) of launch cell ``key``; on ``device="meta"``
+    the plain route (the trace counts a kernel's work through its plain
+    version)."""
+    from dataclasses import replace
+
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.configs.registry import get_config
+    arch, name, batch, seq, kernels = LAUNCH_CELLS[key]
+    cfg = replace(get_config(arch), use_pallas=kernels and device != "meta")
+    return cfg, replace(SHAPES[name], global_batch=batch, seq_len=seq)
+
+
+def launch_traces(out_path: str, keys) -> None:
+    """Host side of the launch phase, in a process of its own: each cut
+    cell's ``roofline_cell`` (one rank's step traced on meta tensors, its
+    peak by ``MemTracker``) and ``argument_bytes``, on a one-rank mesh over
+    a fake group, as JSON at ``out_path``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.cells import (argument_bytes, build_cell,
+                                          pick_grad_accum)
+    from repro_torch.launch.roofline import roofline_cell
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+        out = {}
+        for key in keys:
+            t0 = time.perf_counter()
+            cfg, shape = launch_spec(key, "meta")
+            ga = (pick_grad_accum(cfg.with_parallelism(1), shape, mesh)
+                  if shape.kind == "train" else 1)
+            roof = roofline_cell(cfg.arch_id, shape.name, mesh=mesh,
+                                 cfg_override=cfg, shape=shape, grad_accum=ga,
+                                 save=False, memory=True)
+            cell = build_cell(cfg, shape, mesh, TrainConfig(), grad_accum=ga,
+                              device="meta")
+            out[key] = dict(
+                grad_accum=ga, flops=roof.flops_dev,
+                model_flops=roof.model_flops, compute_s=roof.compute_s,
+                memory_floor_s=roof.memory_floor_s, memory_s=roof.memory_s,
+                peak_bytes=roof.detail["trace"]["peak_bytes"],
+                argument_bytes=argument_bytes(cell),
+                trace_s=time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+
+
+def arg_tensors(torch, args) -> list:
+    from repro_torch._tree import tree_flatten
+    return [t for t in tree_flatten(list(args))[0]
+            if isinstance(t, torch.Tensor)]
+
+
+def launch_cell(torch, mesh, key: str, *, params=None, hold=None,
+                before_timing=None):
+    """Launch cell ``key`` on the card (module docstring, phase 8c): the
+    arguments from ``materialize_cell`` (``params`` reused if given) and
+    the allocator's bytes for them, a warm call (through ``hold``'s
+    wrappers, or counted by ``FlopCounterMode`` for training),
+    ``before_timing()`` if given, timed calls, finite outputs.  Returns
+    (measurements, args); the checks against the host's trace come in
+    :func:`hold_launch_cell`."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.cells import build_cell, materialize_cell
+
+    cfg, shape = launch_spec(key, DEVICE)
+    cell = build_cell(cfg, shape, mesh, TrainConfig(), device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    stat = "requested_bytes.all.current"
+    req0 = torch.cuda.memory_stats().get(stat)
+    alloc0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    args = materialize_cell(
+        cell, torch.Generator(device=DEVICE).manual_seed(LAUNCH_SEED),
+        params=params)
+    torch.cuda.synchronize()
+    materialize_s = time.perf_counter() - t0
+    req1 = torch.cuda.memory_stats().get(stat)
+    alloc1 = torch.cuda.memory_allocated()
+    shared = {id(t) for t in arg_tensors(torch, [params])} if params else set()
+    leaves = arg_tensors(torch, args)
+    fresh = [t for t in leaves if id(t) not in shared]
+    nbytes = lambda t: t.numel() * t.element_size()  # noqa: E731
+    held = dict(whole=sum(nbytes(t) for t in leaves),
+                fresh=sum(nbytes(t) for t in fresh),
+                requested=None if req0 is None else req1 - req0,
+                rounded=sum(-(-nbytes(t) // ALLOC_GRANULE) * ALLOC_GRANULE
+                            for t in fresh),
+                allocated=alloc1 - alloc0)
+
+    fn = cell.fn
+    counter = FlopCounterMode(display=False) if shape.kind == "train" \
+        else contextlib.nullcontext()
+    t0 = time.perf_counter()
+    with hold if hold is not None else contextlib.nullcontext(), counter:
+        out = fn(*args)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    del out
+    if before_timing is not None:
+        before_timing()
+    torch.cuda.reset_peak_memory_stats()     # the peak of the timed calls
+    step_s = []
+    for _ in range(LAUNCH_TIMED[shape.kind]):
+        if hold is not None:
+            hold.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        if hold is not None:
+            hold.read()
+        if shape.kind == "train":
+            vals = [float(v) for v in out[1].values()]
+            if not all(np.isfinite(v) for v in vals):
+                fail(f"launch ({key}): metrics not finite: {out[1]}")
+        elif not bool(torch.isfinite(out[0]).all()):
+            fail(f"launch ({key}): non-finite logits")
+        del out
+    report = dict(
+        arch=cfg.arch_id, shape=shape.name, kind=shape.kind,
+        batch=shape.global_batch, seq=shape.seq_len,
+        grad_accum=cell.tcfg.grad_accum if shape.kind == "train" else 1,
+        materialize_s=materialize_s, warm_s=warm_s, step_s=step_s,
+        step_s_p50=float(np.percentile(step_s, 50)), argument_bytes=held,
+        counted_flops=int(counter.get_total_flops())
+        if shape.kind == "train" else None,
+        # the cell's own peak: less what earlier phases left allocated
+        # (the reused weights are the cell's)
+        peak_bytes=torch.cuda.max_memory_allocated()
+        - (alloc0 - (held["whole"] - held["fresh"])))
+    return report, args
+
+
+def hold_launch_cell(key: str, rep: dict, host: dict) -> None:
+    """Cell ``key``'s card run (``rep``) against the host's trace of the
+    same cut cell (``host``): the arguments' bytes, the FLOPs of a
+    training step, no step faster than its bound; adds the shares."""
+    held = rep["argument_bytes"]
+    if rep["grad_accum"] != host["grad_accum"]:
+        fail(f"launch ({key}): G = {rep['grad_accum']} on the card, "
+             f"{host['grad_accum']} in the trace")
+    if held["whole"] != host["argument_bytes"]:
+        fail(f"launch ({key}): the arguments hold {held['whole']} bytes, the "
+             f"dry-run's argument_bytes of the cut cell is "
+             f"{host['argument_bytes']}")
+    if held["requested"] is not None and held["requested"] != held["fresh"]:
+        fail(f"launch ({key}): the allocator holds {held['requested']} "
+             f"requested bytes for the arguments, not their {held['fresh']}")
+    if held["allocated"] < held["rounded"]:
+        fail(f"launch ({key}): {held['allocated']} bytes allocated, under "
+             f"the 512-byte-rounded sum {held['rounded']}")
+    if rep["counted_flops"] is not None \
+            and rep["counted_flops"] != int(host["flops"]):
+        fail(f"launch ({key}): FlopCounterMode counts {rep['counted_flops']} "
+             f"FLOPs on the card, the meta trace {int(host['flops'])}")
+    p50 = rep["step_s_p50"]
+    bound_s = max(host["compute_s"], host["memory_floor_s"])
+    if p50 < bound_s:
+        fail(f"launch ({key}): a step of {p50:.6f} s is faster than its "
+             f"bound {bound_s:.6f} s: the count is wrong")
+    rep.update(host=host, bound_s=bound_s,
+               compute_share=host["compute_s"] / p50,
+               floor_share=host["memory_floor_s"] / p50)
+    print(f"launch ({key}) ({card_line()}): {rep['arch']} {rep['shape']} B = "
+          f"{rep['batch']}, S = {rep['seq']}, G = {rep['grad_accum']}: step "
+          f"p50 {p50:.6f} s over {len(rep['step_s'])}; compute "
+          f"{host['compute_s']:.6f} s ({rep['compute_share']:.4f} of the "
+          f"step), memory floor {host['memory_floor_s']:.6f} s "
+          f"({rep['floor_share']:.4f}); arguments {held['whole']} bytes "
+          f"(dry-run {host['argument_bytes']}, requested {held['requested']} "
+          f"of {held['fresh']} new, allocated {held['allocated']}, "
+          f"512-rounded {held['rounded']}); peak {rep['peak_bytes'] / 1e9:.3f}"
+          f" GB against the estimate {host['peak_bytes'] / 1e9:.3f} GB; "
+          f"seconds: materialize {rep['materialize_s']:.1f}, warm "
+          f"{rep['warm_s']:.1f}, host trace {host['trace_s']:.1f}")
+
+
+class GmmHold:
+    """B7 and B8 through the MoE module with each launch held against its
+    plain version right after it (entered), and the launch counters set to
+    0 (``reset``) and read (``read``) around a counted call."""
+
+    def __init__(self, torch, label: str):
+        from repro_torch.kernels import moe_gmm
+        from repro_torch.models import moe
+        self.label, self.module = label, moe
+        self.fns = {"moe_gmm": moe_gmm.moe_gmm,
+                    "moe_gmm_down": moe_gmm.moe_gmm_down}
+        self.held = {name: dict(launches=0, beyond_one_ulp=0, max_abs_err=0.0)
+                     for name in self.fns}
+        self.counted = []
+
+    def __enter__(self):
+        for name, real in self.fns.items():
+            setattr(self.module, name, self._holding(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        for name, real in self.fns.items():
+            setattr(self.module, name, real)
+
+    def _holding(self, name, real):
+        def wrapper(*args, **kw):
+            got = real(*args, **kw)
+            plain = real(*args, backend="torch")
+            far, bad, err = bf16_closeness(got, plain)
+            if bad:
+                fail(f"launch {self.label}: {name} differs from its plain "
+                     f"version in {bad} elements beyond one bf16 ulp and "
+                     "1e-3 * max")
+            h = self.held[name]
+            h["launches"] += 1
+            h["beyond_one_ulp"] += far
+            h["max_abs_err"] = max(h["max_abs_err"], err)
+            return got
+        return wrapper
+
+    def reset(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self):
+        self.counted.append({name: fn.launches
+                             for name, fn in self.fns.items()})
+
+
+def launch_host() -> tuple:
+    """Start the launch phase's host work: the dry-run and roofline entry
+    points and the traces of the cut cells (two processes, cell (a)'s
+    alone: its eight microbatches take the longest).  It runs beside cell
+    (a)'s arguments and warm call, and every timed call waits for it (four
+    CPU-heavy processes would slow the host-bound steps).  Returns
+    (processes, their work directory, the start time)."""
+    import atexit
+    import shutil
+    import tempfile
+    work = Path(tempfile.mkdtemp(prefix="launch_phase_"))
+    code = ("import sys, chip_smoke; "
+            "chip_smoke.launch_traces(*sys.argv[1:2], sys.argv[2:])")
+    procs = {name: entry_point(name, args)
+             for name, args in LAUNCH_ENTRY_POINTS.items()}
+    procs.update({f"traces {keys}": host_process(
+        ["-c", code, str(work / f"{keys}.json"), *keys])
+        for keys in ("a", "bc")})
+
+    def stop():                    # also when an earlier phase fails
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+
+    atexit.register(stop)
+    return procs, work, time.perf_counter()
+
+
+def launch_phase(torch) -> tuple:
+    """The launch cells on the card (module docstring, phase 8c) with the
+    host work of :func:`launch_host` finished before the first timed call,
+    then the checks against it; the report entry point runs once the rest
+    is done."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_start = time.perf_counter()
+    procs, work, host_t0 = launch_host()
+    entry, host_s = {}, {}
+
+    def wait_for_host():
+        t0 = time.perf_counter()
+        for name, proc in procs.items():
+            left = LAUNCH_ENTRY_TIMEOUT_S - (time.perf_counter() - host_t0)
+            entry[name] = finish_entry_point(name, proc, left)
+        host_s.update(host=time.perf_counter() - host_t0,
+                      wait=time.perf_counter() - t0)
+
+    cells, launches, held = {}, {}, {}
+    n_moe = get_config(LAUNCH_MOE_ARCH).num_layers \
+        - get_config(LAUNCH_MOE_ARCH).moe.first_dense_layers
+    try:
+        mesh = make_host_mesh(device=DEVICE)
+        try:
+            cells["a"], args = launch_cell(torch, mesh, "a",
+                                           before_timing=wait_for_host)
+            del args
+            torch.cuda.empty_cache()
+            params = None
+            for key in ("b", "c"):
+                hold = GmmHold(torch, f"({key})")
+                cells[key], args = launch_cell(torch, mesh, key,
+                                               params=params, hold=hold)
+                params = args[0]
+                del args
+                torch.cuda.empty_cache()
+                for counted in hold.counted:
+                    for kname, n in counted.items():
+                        if n != n_moe:
+                            fail(f"launch ({key}): {kname} launched {n} "
+                                 f"times in one step, not once per MoE "
+                                 f"layer ({n_moe})")
+                kind = cells[key]["kind"]
+                for kname, h in hold.held.items():
+                    if h["launches"] != n_moe:
+                        fail(f"launch ({key}): {h['launches']} {kname} "
+                             f"launches held on the warm call, not {n_moe}")
+                    launches[kname] = launches.get(kname, 0) \
+                        + hold.counted[0][kname]
+                    held.setdefault(kname, {})[kind] = h
+                cells[key]["launches"] = hold.counted
+            del params
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+        cards_s = time.perf_counter() - t_start - host_s["wait"]
+        host = {}
+        for keys in ("a", "bc"):
+            host.update(json.loads((work / f"{keys}.json").read_text()))
+            del entry[f"traces {keys}"]
+        for key, rep in cells.items():
+            hold_launch_cell(key, rep, host[key])
+        entry["report"] = finish_entry_point(
+            "report", entry_point("report", []), 120.0)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        import shutil
+        shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_start
+    report = dict(cells=cells, held=held, cards_s=cards_s,
+                  entry_points=entry, phase_s=phase_s,
+                  host_s=host_s["host"], wait_s=host_s["wait"],
+                  budget_s=LAUNCH_BUDGET_S)
+    return launches, report
+
+
 def hopper_smem_line() -> str:
     """The dynamic shared memory of B4, B7, B8 and B5 by configuration
     (ptxas reports static shared memory only)."""
@@ -5217,6 +5657,28 @@ def main() -> None:
             max_abs_err=max(r["ep"]["held"][name]["max_abs_err"]
                             for r in mesh["ranks"]),
             shapes={k: v[name] for k, v in mesh["kernel_times"].items()})
+
+    torch.cuda.empty_cache()
+    launch_launches, launch = launch_phase(torch)
+    print("launch phase: " + json.dumps(launch))
+    print(f"launch phase ({card}): {launch['phase_s']:.1f} s, the cells "
+          f"{launch['cards_s']:.1f} s (budget {LAUNCH_BUDGET_S:.0f} s) and "
+          f"{launch['wait_s']:.1f} s waiting for its host work ("
+          f"{launch['host_s']:.1f} s from the phase's start); "
+          + "; ".join(f"({k}) {c['arch']} {c['shape']} B = {c['batch']}: step "
+                      f"p50 {c['step_s_p50']:.6f} s, compute share "
+                      f"{c['compute_share']:.4f}, floor share "
+                      f"{c['floor_share']:.4f}, peak "
+                      f"{c['peak_bytes'] / 1e9:.3f} GB (estimate "
+                      f"{c['host']['peak_bytes'] / 1e9:.3f})"
+                      for k, c in launch["cells"].items()))
+    for name, lines in launch["entry_points"].items():
+        for line in lines if name != "report" else lines[:4]:
+            print(f"launch phase, python -m repro_torch.launch.{name}: {line}")
+    for name in ("moe_gmm", "moe_gmm_down"):
+        launches[name] += launch_launches[name]
+        timings[name]["launch_phase"] = dict(
+            launches=launch_launches[name], held=launch["held"][name])
 
     meta = {"score_fuse": ("cuda", "src/repro_torch/csrc/score_fuse.cu",
                            "src/repro/kernels/score_fuse.py:189"),

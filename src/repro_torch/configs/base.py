@@ -2,7 +2,7 @@
 
 A copy of ``repro.configs.base`` (framework-free data), kept field for
 field so that a configuration means the same in both packages.  ``mesh``
-stays ``None`` on one card: the port's mesh paths are not written yet.
+stays ``None`` off a mesh; the launch cells set it to a ``DeviceMesh``.
 """
 from __future__ import annotations
 

@@ -11,11 +11,16 @@ each chunk recomputed in the backward pass as the reference's
 ``jax.checkpoint`` does).  Caches are written in place.  ``apply_gqa``
 also runs the encoder's bidirectional attention (``causal=False``) and the
 decoder's cross-attention over the encoder's output (``cross=True``), which
-take the plain attend as in the reference: B4 is causal only.
+take the plain attend as in the reference: B4 is causal only.  In a
+mesh program (DTensor operands) the core runs on each rank's shard of the
+batch and the heads (``local_map``): attention mixes neither, so the
+local call is the whole computation for those rows and heads.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -34,12 +39,13 @@ NEG_INF = -1e30
 def _mask(qpos, kpos, *, causal: bool, window: int, kv_valid):
     m = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
                    device=qpos.device)
+    # out of place: in a mesh program the positions may be DTensors
     if causal:
-        m &= qpos[:, None] >= kpos[None, :]
+        m = m & (qpos[:, None] >= kpos[None, :])
     if window:
-        m &= (qpos[:, None] - kpos[None, :]) < window
+        m = m & ((qpos[:, None] - kpos[None, :]) < window)
     if kv_valid is not None:
-        m &= (kpos < kv_valid)[None, :]
+        m = m & (kpos < kv_valid)[None, :]
     return m
 
 
@@ -100,7 +106,12 @@ def attend(q, k, v, qpos, kpos, *, causal=True, window=0, kv_valid=None,
            kv_chunk=1024, use_pallas=False):
     """Dispatch: the flash-attention kernel B4 (full-sequence causal
     forward under ``use_pallas``), direct (short keys, decode) or chunked
-    scan (long keys)."""
+    scan (long keys).  DTensor operands: the same on each rank's shard
+    (:func:`_attend_local`)."""
+    if isinstance(q, DTensor):
+        return _attend_local(q, k, v, qpos, kpos, causal=causal,
+                             window=window, kv_valid=kv_valid,
+                             kv_chunk=kv_chunk, use_pallas=use_pallas)
     scale = 1.0 / (q.shape[-1] ** 0.5)
     Sq, Sk = q.shape[1], k.shape[1]
     if use_pallas and Sq > 1 and causal and window == 0 and kv_valid is None:
@@ -113,6 +124,26 @@ def attend(q, k, v, qpos, kpos, *, causal=True, window=0, kv_valid=None,
                               kv_valid=kv_valid, scale=scale)
     return _chunked_attend(q, k, v, qpos, kpos, causal=causal, window=window,
                            kv_valid=kv_valid, scale=scale, kv_chunk=kv_chunk)
+
+
+def _attend_local(q, k, v, qpos, kpos, **kw):
+    """:func:`attend` on DTensors: q (B, Sq, KV, G, D), k / v (B, Sk, KV,
+    D) keep their shards of the batch (dim 0) and the KV heads (dim 2) and
+    are replicated over every other mesh dim; each rank attends its own
+    rows and heads, the positions whole."""
+    mesh = q.device_mesh
+    pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+               for p in q.placements)
+    whole = (Replicate(),) * mesh.ndim
+
+    def pos_pl(t):
+        return whole if isinstance(t, DTensor) else None
+
+    return local_map(
+        lambda q_, k_, v_, qp, kp: attend(q_, k_, v_, qp, kp, **kw),
+        out_placements=(pl,),
+        in_placements=(pl, pl, pl, pos_pl(qpos), pos_pl(kpos)),
+        device_mesh=mesh, redistribute_inputs=True)(q, k, v, qpos, kpos)
 
 
 # ---------------------------------------------------------------------------
@@ -191,6 +222,11 @@ def apply_gqa(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
         cos, sin = rope_angles(positions, Dh, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    # on a mesh, heads over "model" where it divides them, else replicated
+    # (DTensor would otherwise move the sequence shards onto an uneven
+    # heads split, which no reshape can flatten)
+    tpl = ("dp", None, "model", None)
+    q, k, v = (constrain(t, cfg, tpl) for t in (q, k, v))
 
     if cross and not cached_cross:
         if cache is None:
@@ -217,6 +253,9 @@ def apply_gqa(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     out = attend(qg, k, v, qpos, kpos, causal=causal and not cross,
                  window=window, kv_valid=kv_valid, kv_chunk=cfg.attn_chunk,
                  use_pallas=cfg.use_pallas)
+    # on a mesh, KV heads that "model" does not divide are replicated before
+    # the heads are flattened (DTensor cannot flatten an uneven shard)
+    out = constrain(out, cfg, ("dp", None, "model", None, None))
     out = out.reshape(B, Sq, H, Dh)
     return tp_project_rs(out, p["wo"], cfg, contract_model_dims=2), cache
 

@@ -24,7 +24,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn_lib
-from .layers import mlp_specs, rmsnorm, rmsnorm_spec, swiglu_hidden
+from .layers import (gather_sequence, mlp_specs, rmsnorm, rmsnorm_spec,
+                     swiglu_hidden)
 from .lm import _embed_inputs, _logits, _stack
 from .param import ParamSpec, tree_map
 
@@ -80,13 +81,14 @@ def _remat(train: bool, cfg: ModelConfig) -> bool:
 
 
 def _enc_layer(cfg, p, x, positions):
-    h = rmsnorm(p["ln1"], x, cfg.rms_eps)
+    h = gather_sequence(rmsnorm(p["ln1"], x, cfg.rms_eps), cfg)
     mix, _ = attn_lib.apply_gqa(cfg, p["attn"], h, positions=positions,
                                 causal=False)
     # the residual sum feeds the second norm unrounded (XLA fuses the add
     # into the norm's upcast); the carried stream is rounded to bf16
     res = x.float() + mix.float()
-    h = rmsnorm(p["ln2"], res, cfg.rms_eps, dtype=x.dtype)
+    h = gather_sequence(rmsnorm(p["ln2"], res, cfg.rms_eps, dtype=x.dtype),
+                        cfg)
     return (res.to(x.dtype).float() + _ffn(p["ffn"], h).float()).to(x.dtype)
 
 
@@ -101,24 +103,26 @@ def encode(cfg: ModelConfig, params, frames, *, train=True):
         p = tree_map(lambda a: a[u], params["enc_unit"])
         x = (checkpoint(_enc_layer, cfg, p, x, positions, use_reentrant=False)
              if remat else _enc_layer(cfg, p, x, positions))
-    return rmsnorm(params["enc_norm"], x, cfg.rms_eps)
+    return gather_sequence(rmsnorm(params["enc_norm"], x, cfg.rms_eps), cfg)
 
 
 def _dec_layer(cfg, p, x, positions, enc_out, self_c, cross_c, cache_index,
                kv_valid, decode):
-    h = rmsnorm(p["ln1"], x, cfg.rms_eps)
+    h = gather_sequence(rmsnorm(p["ln1"], x, cfg.rms_eps), cfg)
     mix, _ = attn_lib.apply_gqa(cfg, p["self_attn"], h, positions=positions,
                                 cache=self_c, cache_index=cache_index,
                                 kv_valid=kv_valid)
     res = x.float() + mix.float()
     x = res.to(x.dtype)
-    h = rmsnorm(p["ln2"], res, cfg.rms_eps, dtype=x.dtype)
+    h = gather_sequence(rmsnorm(p["ln2"], res, cfg.rms_eps, dtype=x.dtype),
+                        cfg)
     mix, _ = attn_lib.apply_gqa(cfg, p["cross_attn"], h, positions=positions,
                                 cross=True, kv_x=None if decode else enc_out,
                                 cache=cross_c)
     res = x.float() + mix.float()
     x = res.to(x.dtype)
-    h = rmsnorm(p["ln3"], res, cfg.rms_eps, dtype=x.dtype)
+    h = gather_sequence(rmsnorm(p["ln3"], res, cfg.rms_eps, dtype=x.dtype),
+                        cfg)
     return (x.float() + _ffn(p["ffn"], h).float()).to(x.dtype)
 
 

@@ -12,10 +12,10 @@ import math
 
 import numpy as np
 import torch
-from torch.distributed.tensor import DTensor, Partial
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from ..parallel.collectives import psum_scatter
+from ..parallel.collectives import psum, psum_scatter
 from ..parallel.sharding import (NamedSharding, P, axis_names, dp_axes,
                                  mesh_shape, placements, redistribute)
 from .param import ParamSpec
@@ -58,6 +58,88 @@ def constrain(x: torch.Tensor, cfg, template: tuple) -> torch.Tensor:
         return x
     return redistribute(x, NamedSharding(mesh, constrain_spec(
         tuple(x.shape), cfg, template)))
+
+
+def gather_sequence(x: torch.Tensor, cfg) -> torch.Tensor:
+    """A block's normed input with its sequence whole: Megatron-SP's
+    all-gather before the column-parallel projections, the batch split
+    over the data axes (a projection flattens batch and sequence, which a
+    DTensor sharded on both cannot do).  The identity off a mesh."""
+    return constrain(x, cfg, ("dp", None, None))
+
+
+def _model_shard(t: DTensor, dim: int) -> int | None:
+    """The mesh dim over which "model" splits ``t``'s ``dim``, if any."""
+    names = axis_names(t.device_mesh)
+    for i, pl in enumerate(t.placements):
+        if pl == Shard(dim) and names[i] == "model":
+            return i
+    return None
+
+
+def _vocab_parallel(local, table, idx, vdim: int, idx_pl: tuple):
+    """``local(table_shard, idx, start)`` on each rank's "model" shard of
+    ``table``'s vocabulary dim ``vdim`` (``start``: the shard's first
+    id), its masked result summed over "model" (Megatron's vocab-parallel
+    lookup; DTensor's own masked partials fail in some releases).
+    ``idx`` is taken with placements ``idx_pl`` and the result keeps its
+    batch shards; ``table``'s gradient is its shard, a partial sum over
+    the mesh dims that split ``idx`` but not ``table``."""
+    mesh, i = table.device_mesh, _model_shard(table, vdim)
+    out_pl = tuple(pl if pl == Shard(0) else Replicate() for pl in idx_pl)
+    grad_pl = tuple(Partial() if pl == Shard(0) and tp != Shard(0) else tp
+                    for tp, pl in zip(table.placements, idx_pl))
+    group = mesh.get_group(i)
+
+    if not isinstance(idx, DTensor):      # the same ids on every rank
+        idx = DTensor.from_local(idx, mesh, (Replicate(),) * mesh.ndim,
+                                 run_check=False)
+
+    def run(t, ids):
+        start = mesh.get_local_rank(i) * t.shape[vdim]
+        return psum(local(t, ids, start), [group])
+
+    return local_map(run, out_placements=(out_pl,),
+                     in_placements=(table.placements, idx_pl),
+                     in_grad_placements=(grad_pl, idx_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, idx)
+
+
+def embed_tokens(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``emb``'s rows at ``tokens``.  On a DTensor table whose vocabulary
+    "model" splits, each rank looks up the ids it holds and the rows are
+    summed over "model" (exact: one rank holds each id)."""
+    if not isinstance(emb, DTensor) or _model_shard(emb, 0) is None:
+        return torch.nn.functional.embedding(tokens, emb)
+
+    def local(t, ids, start):
+        ids = ids - start
+        hit = (ids >= 0) & (ids < t.shape[0])
+        rows = torch.nn.functional.embedding(torch.where(hit, ids, 0), t)
+        return rows * hit[..., None].to(rows.dtype)
+
+    whole = (Replicate(),) * emb.device_mesh.ndim
+    return _vocab_parallel(local, emb, tokens, 0, tokens.placements
+                           if isinstance(tokens, DTensor) else whole)
+
+
+def take_along_vocab(logits: torch.Tensor, labels: torch.Tensor):
+    """``logits.gather(-1, labels[..., None])`` (the trailing dim kept);
+    on DTensor logits whose vocabulary "model" splits, vocab-parallel as
+    :func:`embed_tokens`."""
+    if not isinstance(logits, DTensor) or \
+            _model_shard(logits, logits.dim() - 1) is None:
+        return logits.gather(-1, labels.long()[..., None])
+
+    def local(t, ids, start):
+        ids = ids.long()[..., None] - start
+        hit = (ids >= 0) & (ids < t.shape[-1])
+        picked = t.gather(-1, torch.where(hit, ids, 0))
+        return picked * hit.to(picked.dtype)
+
+    # the labels follow the logits' batch shards
+    return _vocab_parallel(local, logits, labels, logits.dim() - 1, tuple(
+        pl if pl == Shard(0) else Replicate() for pl in logits.placements))
 
 
 def rmsnorm_spec(dim: int) -> ParamSpec:

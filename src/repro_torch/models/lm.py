@@ -34,8 +34,9 @@ from . import attention as attn_lib
 from . import moe as moe_lib
 from . import rglru as rglru_lib
 from . import rwkv6 as rwkv_lib
-from .layers import (apply_rope, constrain, mlp_specs, rmsnorm, rmsnorm_spec,
-                     rope_angles, swiglu_hidden, tp_project_rs)
+from .layers import (apply_rope, constrain, embed_tokens, gather_sequence,
+                     mlp_specs, rmsnorm, rmsnorm_spec, rope_angles,
+                     swiglu_hidden, tp_project_rs)
 from .param import ParamSpec, tree_map
 
 # ---------------------------------------------------------------------------
@@ -198,8 +199,8 @@ def _apply_layer(cfg, kind, moe_layer, p, x, positions, cache, cache_index,
     float32 sum that ``x`` rounds (what a fused next layer's first norm
     reads).  ``x_norm`` is the float32 value this layer's first norm reads
     (``x`` when ``None``)."""
-    h = rmsnorm(p["ln1"], x if x_norm is None else x_norm, cfg.rms_eps,
-                dtype=x.dtype)
+    h = gather_sequence(rmsnorm(p["ln1"], x if x_norm is None else x_norm,
+                                cfg.rms_eps, dtype=x.dtype), cfg)
     if kind == "attn":
         mix, new_cache = _apply_attn(cfg, p["mix"], h, positions, cache,
                                      cache_index, kv_valid)
@@ -214,7 +215,8 @@ def _apply_layer(cfg, kind, moe_layer, p, x, positions, cache, cache_index,
     # norm's upcast); only the carried residual is rounded to bf16.
     res = x.float() + constrain(mix, cfg, ("dp", "sp", None)).float()
     x = res.to(x.dtype)
-    h = rmsnorm(p["ln2"], res, cfg.rms_eps, dtype=x.dtype)
+    h = gather_sequence(rmsnorm(p["ln2"], res, cfg.rms_eps, dtype=x.dtype),
+                        cfg)
     if moe_layer:
         ffn, aux = moe_lib.apply_moe(cfg, p["ffn"], h)
     else:
@@ -239,14 +241,15 @@ def _embed_inputs(cfg, params, tokens, prefix_embeds):
     emb = params["embed"]
     scale = torch.full((), math.sqrt(float(cfg.d_model)), dtype=torch.float32,
                        device=emb.device).to(torch.bfloat16)
-    x = emb[tokens] * scale
+    x = embed_tokens(emb, tokens) * scale
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
 
 
 def _logits(cfg, params, x):
-    return torch.einsum("bsd,vd->bsv", x, lm_head_weights(cfg, params))
+    return torch.einsum("bsd,vd->bsv", gather_sequence(x, cfg),
+                        lm_head_weights(cfg, params))
 
 
 def _run_stack(cfg, params, x, positions, caches, cache_index, kv_valid,
@@ -336,7 +339,7 @@ def forward_hidden(cfg: ModelConfig, params, tokens, prefix_embeds=None, *,
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     x, _, aux = _run_stack(cfg, params, x, positions, None, None, None,
                            decode=False, train=train)
-    return x, aux
+    return gather_sequence(x, cfg), aux
 
 
 def lm_head_weights(cfg: ModelConfig, params):

@@ -122,8 +122,10 @@ def _apply_moe_local(cfg: ModelConfig, p: dict, x: torch.Tensor):
     xt = x.reshape(N, D)
     probs, onehot, gate_vals, e_flat, pos_flat, C = route(cfg, p, xt)
 
-    # Scatter tokens into the (E, C + 1, D) buffer; slot C takes the drops.
-    buf = torch.zeros((E, C + 1, D), dtype=x.dtype, device=x.device)
+    # Scatter tokens into the (E, C + 1, D) buffer; slot C takes the drops
+    # (``new_zeros``: a DTensor in a mesh program, whose scatter DTensor
+    # then places).
+    buf = xt.new_zeros((E, C + 1, D))
     src = xt.repeat_interleave(K, dim=0) if K > 1 else xt
     buf[e_flat, pos_flat] = src
     buf = constrain(buf[:, :C].contiguous(), cfg, ("model", None, None))

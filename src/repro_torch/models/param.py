@@ -2,8 +2,8 @@
 
 PyTorch counterpart of ``repro.models.param``.  Every model declares its
 parameters once as a tree (nested dicts and lists) of :class:`ParamSpec`;
-from it come the real tensors (:func:`init_params`) and the parameter
-count.  The logical axes are kept for the sharding item, which maps them
+from it come the real tensors (:func:`init_params`), their meta stand-ins
+(:func:`shape_structs`) and the parameter count.  The logical axes are kept for the sharding item, which maps them
 to a device mesh; on one card nothing reads them.
 """
 from __future__ import annotations
@@ -62,12 +62,15 @@ def init_params(structure, generator: torch.Generator, device=None):
     """Materialise real parameters on ``device`` (CUDA when ``None``) from
     ``generator``, a ``torch.Generator`` on that device.
 
+    On ``device="meta"`` this is :func:`shape_structs` (nothing is drawn).
     The draws come from a ``torch.Generator``, so they are not the
     reference's numbers for the same seed: a test that needs both packages
     on the same weights makes them in JAX and carries them over with
     :func:`repro_torch.convert.params_from_jax`.
     """
     device = resolve_device(device)
+    if device.type == "meta":
+        return shape_structs(structure)
 
     def make(spec: ParamSpec):
         if spec.init == "zeros":
@@ -77,6 +80,14 @@ def init_params(structure, generator: torch.Generator, device=None):
         return _draw(spec, generator, device)
 
     return tree_map(make, structure)
+
+
+def shape_structs(structure):
+    """Meta tensors of each leaf's shape and dtype: the structure without
+    storage (the reference's ``ShapeDtypeStruct`` stand-ins).  Nothing is
+    drawn."""
+    return tree_map(lambda spec: torch.empty(spec.shape, dtype=spec.dtype,
+                                             device="meta"), structure)
 
 
 def count_params(structure) -> int:

@@ -97,11 +97,12 @@ def _associative_scan(elems):
     even = [torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even)]
     out = []
     for ev, od in zip(even, odd):
-        # interleave: even positions from ``ev``, odd ones from ``od``
-        merged = torch.empty((ev.shape[0], n, *ev.shape[2:]), dtype=ev.dtype,
-                             device=ev.device)
-        merged[:, 0::2] = ev
-        merged[:, 1::2] = od
+        # interleave: even positions from ``ev``, odd ones from ``od`` (out
+        # of place, so that a DTensor program propagates it)
+        m = od.shape[1]
+        merged = torch.stack([ev[:, :m], od], dim=2).flatten(1, 2)
+        if n % 2:
+            merged = torch.cat([merged, ev[:, m:]], dim=1)
         out.append(merged)
     return out
 

@@ -13,28 +13,37 @@ logits (or the hidden states) before the loss, as in the reference.
 
 On a mesh, ``build_train_step(grad_shardings=...)`` (the optimizer's
 shardings, as the reference's cells pass them) keeps each float32
-accumulator and each optimizer moment as its shard only: each rank takes
-the gradients of its shard of the batch, and each microbatch's are
+accumulator and each optimizer moment as its shard only.  With a mesh-free
+model (``cfg.mesh`` unset) each rank takes the gradients of its shard of
+the batch with whole parameters, and each microbatch's are
 reduce-scattered into the accumulators (ZeRO-2); the norm and AdamW run on
-the shards, and the new parameters come back replicated.
+the shards, and the new parameters come back replicated.  With the model
+itself on a mesh of more than one rank (``cfg.mesh``, as the launch cells
+build it) the step is one DTensor program, the counterpart of the
+reference's GSPMD step: parameters, batch and state are DTensors of their
+shardings, and DTensor places the collectives; on a mesh of one rank it is
+the plain step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import TrainConfig
 from ..models import lm
 from ..models.api import Model
+from ..models.layers import take_along_vocab
 from ..models.param import tree_leaves, tree_map
 from ..parallel.collectives import (full_tensor, gather_shards, mesh_groups,
                                     reduce_shards)
 from ..parallel.sharding import (NamedSharding, P, local_shape, local_slices,
-                                 opt_shardings, param_shardings)
+                                 opt_shardings, param_shardings, redistribute)
 from . import optim
 
 
@@ -53,9 +62,8 @@ def init_train_state(model: Model, tcfg: TrainConfig,
 
 def cross_entropy(logits, labels):
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    return (lse - take_along_vocab(logits, labels)).mean()
 
 
 def fused_cross_entropy(x, head, labels, *, vocab_size: int,
@@ -136,6 +144,9 @@ def value_and_grad(loss_fn):
                 p.is_floating_point()), params)
             leaves = tree_leaves(live)
             loss, metrics = loss_fn(live, batch)
+            if isinstance(loss, DTensor):    # a mesh program: sum the partials
+                loss, metrics = _replicated(loss), {
+                    k: _replicated(v) for k, v in metrics.items()}
             wrt = [p for p in leaves if p.requires_grad]
             got = torch.autograd.grad(loss, wrt, allow_unused=True)
         by_id = {id(p): g for p, g in zip(wrt, got) if g is not None}
@@ -145,6 +156,14 @@ def value_and_grad(loss_fn):
                 grads)
 
     return grad_fn
+
+
+def _replicated(t):
+    """A DTensor reduced to the same value on every rank (its partial sums
+    summed); anything else as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
 
 
 def build_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
@@ -158,6 +177,11 @@ def build_train_step(model: Model, tcfg: TrainConfig, grad_shardings=None):
     """
     grad_fn = value_and_grad(make_loss_fn(model))
     G = tcfg.grad_accum
+    mesh = model.cfg.mesh
+    if grad_shardings is not None and mesh is not None:
+        if mesh.size() > 1:
+            return _mesh_train_step(grad_fn, tcfg, grad_shardings)
+        grad_shardings = None    # one rank: every shard is the whole tensor
     if grad_shardings is not None:
         return _sharded_train_step(grad_fn, tcfg, grad_shardings)
 
@@ -321,13 +345,83 @@ def _sharded_train_step(grad_fn, tcfg: TrainConfig, grad_shardings):
     return train_step
 
 
+def _mesh_train_step(grad_fn, tcfg: TrainConfig, grad_shardings):
+    """The step as one DTensor program (see the module's docstring).
+    ``state``'s leaves are DTensors of the cell's shardings (parameters by
+    ``param_shardings``, the optimizer's trees by ``grad_shardings``) and
+    the batch's are DTensors of ``batch_shardings``.  Microbatch ``i`` is
+    the ``i``-th of ``G`` equal slices of every rank's rows (the same rows
+    in all, in another grouping than the one-device step's, whose sum is
+    the same); each microbatch's gradients, float32 over ``G``, are
+    redistributed into the accumulators' shardings (a reduce-scatter where
+    a gradient's partial sums meet a sharded accumulator).  AdamW runs on
+    the shards; the new parameters are redistributed back to their own
+    shardings."""
+    G = tcfg.grad_accum
+    flat_shd, _ = optim.tree_flatten(grad_shardings)
+
+    def micro(v: DTensor, i: int) -> DTensor:
+        if G == 1:
+            return v
+        loc = v.to_local()
+        loc = loc.reshape(G, loc.shape[0] // G, *loc.shape[1:])[i]
+        return DTensor.from_local(loc, v.device_mesh, v.placements,
+                                  run_check=False)
+
+    def train_step(state: TrainState, batch: dict):
+        for k, v in batch.items():
+            if not isinstance(v, DTensor):
+                raise TypeError(f"batch[{k!r}] is a {type(v).__name__} on a "
+                                "mesh; pass DTensors (batch_shardings)")
+        with implicit_replication():
+            flat_p, rebuild = optim.tree_flatten(state.params)
+            loss, acc, per_step = None, None, []
+            for i in range(G):
+                (l_i, m_i), g_i = grad_fn(
+                    state.params, {k: micro(v, i) for k, v in batch.items()})
+                loss = l_i / G if loss is None else loss + l_i / G
+                per_step.append(m_i)
+                g = [redistribute(g.float() / G, s) for g, s in
+                     zip(optim.tree_flatten(g_i)[0], flat_shd)]
+                acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+                del g_i
+            metrics = {k: torch.stack([m[k] for m in per_step]).mean()
+                       for k in per_step[0]}
+            total = None
+            for a in acc:
+                sq = a.square().sum()
+                total = sq if total is None else total + sq
+            gnorm = torch.sqrt(_replicated(total))
+            new_p, new_opt, opt_metrics = optim.adamw_update(
+                rebuild(acc), state.params, state.opt, tcfg, gnorm=gnorm)
+            new_params = rebuild([
+                t.redistribute(p.device_mesh, p.placements)
+                for t, p in zip(optim.tree_flatten(new_p)[0], flat_p)])
+        metrics = dict(metrics, loss=loss, **opt_metrics)
+        return TrainState(new_params, new_opt), metrics
+
+    return train_step
+
+
+def _mesh_program(model: Model):
+    """DTensor's treatment of plain tensors inside a mesh program (the
+    model's own constants, positions and masks: replicated), off a mesh
+    nothing."""
+    mesh = model.cfg.mesh
+    if mesh is not None and mesh.size() > 1:
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
 def build_prefill_step(model: Model):
     def prefill_step(params, batch, cache):
-        return model.prefill(params, batch, cache)
+        with _mesh_program(model):
+            return model.prefill(params, batch, cache)
     return prefill_step
 
 
 def build_decode_step(model: Model):
     def decode_step(params, token, cache, index):
-        return model.decode_step(params, token, cache, index)
+        with _mesh_program(model):
+            return model.decode_step(params, token, cache, index)
     return decode_step

@@ -536,3 +536,85 @@ def ep_on_card(mesh, seed: int) -> None:
     ulps = _bf16_ulps(got.float() - y_ref.float(), y_ref.float())
     assert ulps <= 2.0, ulps
     assert abs(float(aux.to_local()) - float(aux_ref)) <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# launch cells (test_torch_launch.py)
+# ---------------------------------------------------------------------------
+
+def launch_cells_on_ranks(_mesh, workdir: str, cases_json: str) -> None:
+    """Each case ``[arch, kind, S, B, grad_accum, mesh_shape, tcfg,
+    float32]`` of ``cases_json`` (``tcfg``: ``TrainConfig``'s keywords) on
+    a ``("data", "model")`` mesh of ``mesh_shape`` over the ranks' group
+    (:func:`launch_cell_on_mesh`)."""
+    import json
+
+    from torch.distributed.device_mesh import init_device_mesh
+    for arch, kind, S, B, ga, shape, tcfg, f32 in json.loads(cases_json):
+        mesh = init_device_mesh("cpu", tuple(shape),
+                                mesh_dim_names=("data", "model"))
+        launch_cell_on_mesh(mesh, workdir, arch, kind, S, B, ga,
+                            "x".join(map(str, shape)) + "_f32" * f32, tcfg,
+                            f32)
+
+
+def launch_cell_on_mesh(mesh, workdir: str, arch: str, kind: str, S: int,
+                        B: int, grad_accum: int, tag: str, tcfg: dict,
+                        float32: bool = False) -> None:
+    """The reduced launch cell of ``arch`` at ``kind`` on the mesh: its
+    arguments from ``materialize_cell`` (DTensors of the cell's shardings)
+    on the reference's parameters (``workdir/<arch>.pkl``; cast to float32
+    under ``float32``), the batch replaced by the reference's inputs; rank
+    0 writes to ``workdir/<arch>_<tag>.pkl`` the gathered logits, or the
+    train step's float32 metrics and its new state gathered whole (a tree
+    of tensors like the one-rank step's)."""
+    import pickle
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch._tree import tree_flatten
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.launch.cells import build_cell, materialize_cell
+    from repro_torch.models.param import tree_map
+    from repro_torch.parallel.collectives import full_tensor
+    from repro_torch.parallel.sharding import local_shape, shard_tree
+
+    with open(Path(workdir) / f"{arch}.pkl", "rb") as f:
+        ref = pickle.load(f)
+    cell = build_cell(get_config(arch).reduced(),
+                      ShapeConfig(f"t_{kind}", S, B, kind), mesh,
+                      TrainConfig(**tcfg), grad_accum=grad_accum,
+                      device="cpu")
+    params = params_from_jax(ref["params"], device="cpu")
+    if float32:
+        params = tree_map(lambda t: t.float(), params)
+    args = list(materialize_cell(cell, torch.Generator().manual_seed(0),
+                                 params=params))
+    for arg, shard in zip(args[:3], cell.in_shardings[:3]):
+        for t, s in zip(tree_flatten(arg)[0], tree_flatten(shard)[0]):
+            assert isinstance(t, DTensor) and t.placements == s.placements
+            assert tuple(t.to_local().shape) == local_shape(tuple(t.shape), s)
+    batch = {k: torch.from_numpy(v) if v.dtype == np.int32
+             else torch.from_numpy(v).bfloat16()
+             for k, v in ref["batch"].items()}
+    args[1] = shard_tree(batch, cell.in_shardings[1])
+    out = cell.fn(*args)
+    if kind == "train":
+        new, metrics = out
+        leaves, rebuild = tree_flatten(new)
+        # the new state keeps the cell's shardings (its out_shardings)
+        for t, s in zip(leaves, tree_flatten(cell.out_shardings[0])[0]):
+            assert isinstance(t, DTensor) and t.placements == s.placements, \
+                (t.placements if isinstance(t, DTensor) else type(t),
+                 s.placements)
+        result = {k: float(v.to_local() if isinstance(v, DTensor) else v)
+                  for k, v in metrics.items()}
+        result["state"] = rebuild([full_tensor(t) if isinstance(t, DTensor)
+                                   else t for t in leaves])
+    else:
+        result = {"logits": full_tensor(out[0]).float().numpy()}
+    if dist.get_rank() == 0:
+        with open(Path(workdir) / f"{arch}_{tag}.pkl", "wb") as f:
+            pickle.dump(result, f)

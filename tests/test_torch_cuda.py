@@ -1039,6 +1039,43 @@ def test_reduced_train_step_on_the_card_matches_cpu(cuda):
 
 
 
+def test_fused_cross_entropy_on_the_card_matches_plain(cuda):
+    """The chunked-vocab fused CE (``train.step.fused_cross_entropy``, which
+    ``launch.perf``'s ``fused_ce`` variants count) against the plain CE of
+    the full logits, on the card at qwen2-0.5b's vocabulary (151,936 rows of
+    896, padded to 152,064 as a tensor-parallel head is, the padding masked
+    out): the loss within 1e-4 relative, the gradients of the hidden states
+    and of the head within 1e-2 of their norms (the chunks' products may
+    take other cuBLAS kernels than the full one)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.train.step import cross_entropy, fused_cross_entropy
+    cfg = get_config("qwen2-0.5b")
+    V, D, pad = cfg.vocab_size, cfg.d_model, 128
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((2, 64, D), generator=gen, device=cuda).bfloat16()
+    head = (torch.randn((V + pad, D), generator=gen, device=cuda)
+            / D ** 0.5).bfloat16()
+    labels = torch.randint(0, V, (2, 64), generator=gen, device=cuda)
+
+    def grads(fn):
+        xs, hs = x.clone().requires_grad_(), head.clone().requires_grad_()
+        loss = fn(xs, hs)
+        gx, gh = torch.autograd.grad(loss, (xs, hs))
+        return float(loss.detach()), gx.float(), gh.float()
+
+    fused = grads(lambda xs, hs: fused_cross_entropy(
+        xs, hs, labels, vocab_size=V, chunk=cfg.ce_chunk))
+    plain = grads(lambda xs, hs: cross_entropy(
+        torch.einsum("bsd,vd->bsv", xs, hs[:V]), labels))
+    print(f"fused CE {fused[0]!r}, plain {plain[0]!r}")
+    assert abs(fused[0] - plain[0]) <= 1e-4 * abs(plain[0])
+    for name, a, b in (("x", fused[1], plain[1]), ("head", fused[2], plain[2])):
+        rel = float((a - b).norm() / b.norm())
+        print(f"d loss / d {name}: {rel:.3g} of its norm apart")
+        assert rel <= 1e-2, name
+    assert float(fused[2][V:].abs().max()) == 0.0    # padding rows: no gradient
+
+
 def test_operator_closed_loop_on_the_card_matches_cpu(cuda):
     """``tests/test_operator.py``'s full fault menu through the port's
     ``ChaosReplay`` on the card (tiled lanes, so B1 and B2 run at this

@@ -81,7 +81,10 @@ MODULES = ["repro_torch", "repro_torch.convert", "repro_torch._device",
            "repro_torch.analysis.cli", "repro_torch.analysis.racecheck",
            "repro_torch.analysis.rules", "repro_torch.parallel",
            "repro_torch.parallel.sharding", "repro_torch.parallel.collectives",
-           "repro_torch.launch.mesh"]
+           "repro_torch.launch.mesh", "repro_torch.launch.hw",
+           "repro_torch.launch.cells", "repro_torch.launch.dryrun",
+           "repro_torch.launch.roofline", "repro_torch.launch.perf",
+           "repro_torch.launch.report", "repro_torch.launch.trace"]
 
 #: names the import check also reaches, beside the modules
 NAMES = [("repro_torch.parallel.compression", n)
@@ -96,7 +99,21 @@ NAMES += [("repro_torch.parallel.sharding", n)
                     "batch_pspec", "batch_shardings", "cache_shardings",
                     "constrain_activation", "local_slices", "shard_tree")]
 NAMES += [("repro_torch.launch.mesh", n)
-          for n in ("make_production_mesh", "make_host_mesh")]
+          for n in ("make_production_mesh", "make_host_mesh",
+                    "fake_production_mesh")]
+NAMES += [("repro_torch.launch.cells", n)
+          for n in ("CellBuild", "pick_grad_accum", "build_cell",
+                    "materialize_cell", "argument_bytes")]
+NAMES += [("repro_torch.launch.roofline", n)
+          for n in ("model_flops", "analytic_memory_floor", "RooflineResult",
+                    "collective_wire_bytes", "roofline_cell", "trace_cell")]
+NAMES += [("repro_torch.launch.dryrun", "run_cell"),
+          ("repro_torch.launch.perf", "VARIANTS"),
+          ("repro_torch.launch.perf", "run_variant"),
+          ("repro_torch.launch.report", "dryrun_table"),
+          ("repro_torch.launch.report", "roofline_table"),
+          ("repro_torch.launch.trace", "StepCounter"),
+          ("repro_torch.models.api", "Model")]
 NAMES += [("repro_torch.parallel.collectives", n)
           for n in ("psum", "psum_scatter", "reduce_shards", "gather_shards",
                     "full_tensor")]
@@ -216,8 +233,10 @@ def test_default_device_raises_without_cuda(make, monkeypatch):
 def test_cpu_is_only_taken_when_asked():
     assert _device.resolve_device("cpu") == torch.device("cpu")
     assert RecommendationEngine(device="cpu").device.type == "cpu"
+    # meta (the dry-run's shapes without storage) only when named
+    assert _device.resolve_device("meta") == torch.device("meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        _device.resolve_device("meta")
+        _device.resolve_device("xpu")
 
 
 def test_route_never_falls_back():
