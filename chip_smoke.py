@@ -2,8 +2,9 @@
 """Drive the PyTorch port's serving, live-ingest, K-sharded and quantized
 archive paths, the paper's simulated-cloud pipeline (collector, ingestion,
 admission, baselines, load harness), the closed-loop operator and the
-region-sharded multi-vendor world, spot-elastic training with checkpoints
-and the int8 gradient exchange, LM serving (DeepSeek-V2-Lite,
+region-sharded multi-vendor world with the paper's four-setup comparison,
+spot-elastic training with checkpoints and the int8 gradient exchange, LM
+serving (DeepSeek-V2-Lite,
 RWKV6-7B, RecurrentGemma-2B), the encoder-decoder and vision-prefix
 families (seamless-m4t-medium, llava-next-mistral-7b) served and run
 forward, qwen2-0.5b's full-sequence forward and training step, and the
@@ -132,8 +133,21 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    1e-5, ATOL 1e-4); each replay and each parity request batch is one
    ``launch_segment`` (B1's phase 0 counted on the sharded ones: a phase 0
    and an emit a region shard), every B3 tick's inputs cloned at the call
-   and replayed through the plain version; the phase fails if B1, B2 or B3
-   never launched.  Prints ``reconcile_once`` p50 / p90 on the host clock,
+   and replayed through the plain version.  Then the paper's four-setup
+   comparison (``paper_comparison``): ``multicloud.compare_setup`` for
+   single-region, multi-AZ, multi-region and multi-cloud at
+   ``benchmarks/multiregion_compare.py``'s full size (period 30 min, 6
+   types a region, window 12, warmup 16, 24 cycles, 96 vCPUs,
+   ``default_reclaims(24)``, all four policies), SpotVista's replay on the
+   card as one ``launch_segment`` with the O(K) pool scan (K = 6-36 is
+   under the auto threshold), every serve and B3 tick held as above; the
+   four results must equal the port's CPU run of the same setup (a
+   difference only after a pool parted at a counted F1 tie), with
+   SpotVista's availability at or above SpotFleet's and interruptions
+   injected, and a line a setup prints each policy's availability and
+   savings beside the abstract's gains (simulator outcomes, not gated).
+   The phase fails if B1, B2 or B3 never launched.  Prints
+   ``reconcile_once`` p50 / p90 on the host clock,
    re-recommendations, plans, launches, retirements, delivered and
    recommended availability (simulator outcomes), and its seconds against
    its 120 s budget.
@@ -326,8 +340,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
    each launch is held against its plain version (one bf16 ulp or 1e-3 *
    max).  Beside the traces the entry points run on the host, each of which
    must exit 0: ``launch.dryrun`` (DeepSeek-V2-Lite ``decode_32k`` on the
-   fake 16 x 16 group), ``launch.roofline`` (qwen2-0.5b ``train_4k``),
-   then ``launch.report``.
+   fake 16 x 16 group, on this host's torch: at most
+   ``LAUNCH_DRYRUN_LIMIT_GIB`` a rank and not listed over the card, its
+   peak and argument GiB printed with the torch version),
+   ``launch.roofline`` (qwen2-0.5b ``train_4k``), then ``launch.report``.
 9. Print B4's time over SDPA's, B8's over ``torch.bmm``'s and B7's over
    ``torch.bmm(x, cat([w1, w3], -1))``'s (the two products alone, a
    yardstick, not ``library_ms``: no one call computes B7), prefill and
@@ -443,6 +459,15 @@ MC_PARITY_TICKS = 3
 MC_CYCLES = 24
 MC_REGIONS = ("us-east-1", "eu-west-1", "us-central1")   # aws rows take c5/m5
 MC_REQUESTS = ((SIM_POOL_CPUS, 0.5), (96.0, 0.5))
+# the paper's four-setup comparison at benchmarks/multiregion_compare.py's
+# FULL size (its default_reclaims(24), all four policies); the replay's K
+# (6-36) is under the pool scan's auto threshold, so the card run asks for
+# the O(K) scan (B2) and its CPU twin keeps the default route
+COMPARE_SIZE = dict(period_min=30.0, types_per_region=6, window=12,
+                    warmup=16, cycles=24, amount=96.0)
+# the abstract's SpotVista gains (availability %, savings %): against
+# SpotVerse in a multi-region setup, and against AWS SpotFleet
+PAPER_GAINS = {"spotverse": (81.28, 2.84), "spotfleet": (21.6, 26.3)}
 # score_archive's availability rows against the CPU's (tests/_score_helpers)
 ROW_RTOL, ROW_ATOL = 1e-5, 1e-4
 
@@ -995,17 +1020,22 @@ def host_stats(archive) -> list:
 
 def compare_with_cpu(torch, server, archive, cands, calls, served, label):
     """Serve ``calls`` again on the CPU, on an archive holding the card
-    archive's statistics: score rows must be bit-identical, and pools
-    identical except where ``prefix_sum_tie`` flags a tie (counted)."""
+    archive's statistics (scored from them at any K, the card server's
+    pool scan): score rows must be bit-identical, and pools identical
+    except where ``prefix_sum_tie`` flags a tie (counted)."""
     from repro_torch import convert
     from repro_torch.core import pool as pool_lib
+    from repro_torch.core.config import EngineConfig
     from repro_torch.core.types import RequestBatch
     from repro_torch.kernels import pool_scan as ps
     from repro_torch.serve import BatchServer
 
     cpu_archive = convert.archive_from_numpy(cands, host_stats(archive),
                                              device="cpu", key="cpu")
-    cpu_server = BatchServer(device="cpu", bucket_sizes=BUCKETS)
+    cpu_server = BatchServer(device="cpu", bucket_sizes=BUCKETS,
+                             config=EngineConfig(
+                                 pool_impl=server.engine.pool_impl,
+                                 score_impl="tiled"))
     cpu_served = [cpu_server.serve(cpu_archive, reqs) for reqs in calls]
 
     ties = mismatched = csc_rows_differ = 0
@@ -2493,6 +2523,105 @@ def shard_vec_paths(torch, archive) -> int:
                for s in archive.shards)
 
 
+def paper_comparison(torch, add) -> tuple:
+    """``compare_setup`` for each of the four setups on the card (B1's
+    phase 0 and emit, B2, B3 on SpotVista's replay; the baselines are
+    host numpy), then on the CPU at the default engine route: the four
+    results must be equal, or differ only after a pool that parted at a
+    counted F1 tie.  Every serve and ``score_archive`` row of the replay
+    is held against the CPU (``watched_replay``), every B3 tick against
+    its plain version; ``multiregion_compare.py``'s availability gates
+    hold in each setup.  Returns (the report, B3's launches, its max abs
+    error)."""
+    from repro_torch.core.config import EngineConfig
+    from repro_torch.multicloud import compare as cmp
+
+    real = cmp.ChaosReplay
+
+    class Watched(real):
+        def run(self, label):
+            watches.append(watched_replay(self))
+            return super().run(label)
+
+    runs, b3_launches, b3_err = {}, 0, 0.0
+    for setup in cmp.SETUPS:
+        label, watches, ticks = f"compare {setup}", [], held_ticks(torch)
+        t0 = time.perf_counter()
+        cmp.ChaosReplay = Watched
+        try:
+            with ticks:
+                card, n = add(label, lambda: cmp.compare_setup(
+                    setup, device=DEVICE,
+                    engine_config=EngineConfig(pool_impl="tiled"),
+                    **COMPARE_SIZE), sharded=True)
+        finally:
+            cmp.ChaosReplay = real
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = cmp.compare_setup(setup, device="cpu", **COMPARE_SIZE)
+        cpu_s = time.perf_counter() - t0
+        if len(watches) != 1:
+            fail(f"{label}: {len(watches)} SpotVista replays, not one")
+        held = watches[0].hold(torch, label)
+        b3_err = max(b3_err, ticks.check(label))
+        b3_launches += ticks.launches
+        n = dict(n, stats_update=ticks.launches)
+        if 0 in n.values() or n["score_fuse"] != n["score_fuse_phase0"]:
+            fail(f"{label}: launches {n}, not a phase 0 and an emit a "
+                 "region shard, B2 and B3 each at least once")
+        card = {p: r.to_dict() for p, r in card.items()}
+        cpu = {p: r.to_dict() for p, r in cpu.items()}
+        differ = sorted(f"{p}.{k}" for p in card for k in card[p]
+                        if card[p][k] != cpu[p][k])
+        if differ and not (held["tie_mismatches"] and all(
+                d.startswith("spotvista.") for d in differ)):
+            fail(f"{label}: {differ} differ from the CPU run with "
+                 f"{held['tie_mismatches']} pools parted at an F1 tie")
+        sv, sf = card["spotvista"], card["spotfleet"]
+        if sv["interruptions"] == 0:
+            fail(f"{label}: the reclaim schedule injected nothing")
+        if sv["availability"] < sf["availability"]:
+            fail(f"{label}: spotvista availability {sv['availability']} "
+                 f"below spotfleet's {sf['availability']}")
+        gains = {p: dict(
+            availability_pct=100.0 * (sv["availability"]
+                                      / card[p]["availability"] - 1.0),
+            savings_pp=sv["savings_pct"] - card[p]["savings_pct"])
+            for p in PAPER_GAINS}
+        runs[setup] = dict(card_s=card_s, cpu_s=cpu_s, launches=n,
+                           results=card, fields_differing=differ,
+                           gains=gains, held=held)
+    return dict(size=COMPARE_SIZE, paper=PAPER_GAINS, runs=runs), \
+        b3_launches, b3_err
+
+
+def compare_lines(cp: dict, seconds: float, card: str) -> list[str]:
+    """``paper_comparison``'s report as printed: a header, then a line a
+    setup with each policy's availability and savings, SpotVista's gains
+    beside the abstract's, the launches and the CPU comparison."""
+    lines = [f"operator phase, the paper's comparison ({card}): "
+             f"{seconds:.1f} s at {cp['size']}, default_reclaims(24); "
+             "availability / savings % are simulator outcomes, not card "
+             "numbers"]
+    for setup, r in cp["runs"].items():
+        res, g, n = r["results"], r["gains"], r["launches"]
+        lines.append(
+            f"compare {setup}: card {r['card_s']:.2f} s, CPU "
+            f"{r['cpu_s']:.2f} s; " + "; ".join(
+                f"{p} {v['availability']:.5f} / {v['savings_pct']:.2f}%"
+                for p, v in res.items())
+            + "; SpotVista against " + ", ".join(
+                f"{p} availability {g[p]['availability_pct']:+.2f}%, "
+                f"savings {g[p]['savings_pp']:+.2f} points (paper "
+                f"{cp['paper'][p][0]}%, {cp['paper'][p][1]}%)" for p in g)
+            + f"; B1 {n['score_fuse_phase0']} phase-0 + {n['score_fuse']} "
+            f"emits, B2 {n['pool_scan']}, B3 {n['stats_update']}, each "
+            f"held; {r['held']['ties']} F1 ties, "
+            f"{r['held']['tie_mismatches']} pools parted at one, fields "
+            f"differing from the CPU run: {r['fields_differing'] or 'none'}")
+    return lines
+
+
 def operator_phase(torch, market, col) -> tuple:
     """The closed loop and the region-sharded multi-vendor world on the
     card (see the module docstring).  B1's and B2's counters are set to 0
@@ -2571,6 +2700,9 @@ def operator_phase(torch, market, col) -> tuple:
         fail(f"multicloud replay: B3 launched {mc_stats['b3_launches']} "
              f"times on {len(bounds)} shards")
     lap("multicloud replay")
+    compare, n_b3, e_b3 = paper_comparison(torch, add)
+    b3(dict(b3_launches=n_b3, b3_max_abs_err=e_b3))
+    lap("compare")
     for name, k in launches.items():
         if k == 0:
             fail(f"operator phase: the path never launched kernel {name}")
@@ -2586,7 +2718,7 @@ def operator_phase(torch, market, col) -> tuple:
             collected=eng.collector.ticks,
             missing_responses=eng.collector.missing_responses,
             parity=parity, replay=mc_stats),
-        launches=launches, max_abs_err=err, seconds=laps,
+        compare=compare, launches=launches, max_abs_err=err, seconds=laps,
         phase_s=time.perf_counter() - t_start)
     return launches, report
 
@@ -4992,6 +5124,9 @@ LAUNCH_TIMED = {"train": 3, "prefill": 2, "decode": 5}   # after one warm call
 LAUNCH_SEED = 3
 ALLOC_GRANULE = 512           # the caching allocator's block rounding
 LAUNCH_ENTRY_TIMEOUT_S = 900.0
+# a rank of the dry-run's DeepSeek-V2-Lite decode_32k cell on 16 x 16 holds
+# 9.43 GiB of arguments and one layer's per-head K / V shard (~0.17 GB)
+LAUNCH_DRYRUN_LIMIT_GIB = 12.0
 LAUNCH_ENTRY_POINTS = {
     "dryrun": ["--arch", LAUNCH_MOE_ARCH, "--shape", "decode_32k",
                "--single-pod-only"],
@@ -5031,6 +5166,40 @@ def finish_entry_point(name: str, proc, timeout: float) -> list[str]:
                                 "|"))]
 
 
+def hold_dryrun(lines: list[str], since: float) -> dict:
+    """The dry-run entry point's DeepSeek-V2-Lite ``decode_32k`` cell on
+    the production mesh, traced on this host's torch: fail unless its
+    ``[ok]`` line reports at most ``LAUNCH_DRYRUN_LIMIT_GIB`` a device and
+    no summary line lists it over the card.  Returns the cell's record
+    (written by the entry point since ``since``, the epoch seconds)."""
+    import re
+
+    import torch
+    from repro_torch.launch.dryrun import ART_DIR
+    arch, shape = LAUNCH_ENTRY_POINTS["dryrun"][1], \
+        LAUNCH_ENTRY_POINTS["dryrun"][3]
+    cell = f"{arch} × {shape} × single"
+    ok = [ln for ln in lines if ln.startswith("[ok]") and cell in ln]
+    if len(ok) != 1:
+        fail(f"dryrun: no [ok] line for {cell}: {lines}")
+    gib = float(re.search(r"~([0-9.]+) GiB/device", ok[0]).group(1))
+    if gib > LAUNCH_DRYRUN_LIMIT_GIB:
+        fail(f"dryrun: {cell} at {gib} GiB a device on torch "
+             f"{torch.__version__}, over {LAUNCH_DRYRUN_LIMIT_GIB} GiB")
+    over = [ln for ln in lines if "over the card" in ln]
+    if over:
+        fail(f"dryrun: cells over the card on torch {torch.__version__}: "
+             f"{over}")
+    path = ART_DIR / f"{arch}__{shape}__single.json"
+    if not path.exists() or path.stat().st_mtime < since:
+        fail(f"dryrun: {path} was not written by this run")
+    mem = json.loads(path.read_text())["memory"]
+    return dict(cell=cell, torch=torch.__version__,
+                peak_gib=mem["peak_estimate_bytes"] / 2 ** 30,
+                argument_gib=mem["argument_bytes"] / 2 ** 30,
+                line_gib=gib, limit_gib=LAUNCH_DRYRUN_LIMIT_GIB)
+
+
 def launch_spec(key: str, device: str):
     """(config, cut shape) of launch cell ``key``; on ``device="meta"``
     the plain route (the trace counts a kernel's work through its plain
@@ -5047,8 +5216,8 @@ def launch_spec(key: str, device: str):
 def launch_traces(out_path: str, keys) -> None:
     """Host side of the launch phase, in a process of its own: each cut
     cell's ``roofline_cell`` (one rank's step traced on meta tensors, its
-    peak by ``MemTracker``) and ``argument_bytes``, on a one-rank mesh over
-    a fake group, as JSON at ``out_path``."""
+    peak by ``trace.rank_mem_tracker``) and ``argument_bytes``, on a
+    one-rank mesh over a fake group, as JSON at ``out_path``."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
@@ -5308,7 +5477,7 @@ def launch_phase(torch) -> tuple:
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import make_host_mesh
 
-    t_start = time.perf_counter()
+    t_start, epoch = time.perf_counter(), time.time()
     procs, work, host_t0 = launch_host()
     entry, host_s = {}, {}
 
@@ -5358,6 +5527,7 @@ def launch_phase(torch) -> tuple:
         finally:
             dist.destroy_process_group()
         cards_s = time.perf_counter() - t_start - host_s["wait"]
+        dryrun = hold_dryrun(entry["dryrun"], epoch)
         host = {}
         for keys in ("a", "bc"):
             host.update(json.loads((work / f"{keys}.json").read_text()))
@@ -5375,7 +5545,7 @@ def launch_phase(torch) -> tuple:
         shutil.rmtree(work, ignore_errors=True)
     phase_s = time.perf_counter() - t_start
     report = dict(cells=cells, held=held, cards_s=cards_s,
-                  entry_points=entry, phase_s=phase_s,
+                  entry_points=entry, dryrun=dryrun, phase_s=phase_s,
                   host_s=host_s["host"], wait_s=host_s["wait"],
                   budget_s=LAUNCH_BUDGET_S)
     return launches, report
@@ -5516,6 +5686,9 @@ def main() -> None:
         f"{v['report']['retirements']} retirements, "
         f"{v['report']['interruptions']} interruptions"
         for k, v in runs.items()))
+    for line in compare_lines(op["compare"], op["seconds"]["compare"],
+                              card):
+        print(line)
     timings["score_fuse"]["operator_phase"] = dict(
         launches={"phase0": op_launches["score_fuse_phase0"],
                   "emit": op_launches["score_fuse"]},
@@ -5675,6 +5848,10 @@ def main() -> None:
     for name, lines in launch["entry_points"].items():
         for line in lines if name != "report" else lines[:4]:
             print(f"launch phase, python -m repro_torch.launch.{name}: {line}")
+    dry = launch["dryrun"]
+    print(f"launch phase, dry-run on this host's torch {dry['torch']}: "
+          f"{dry['cell']} peak {dry['peak_gib']:.4f} GiB a rank, arguments "
+          f"{dry['argument_gib']:.4f} GiB (limit {dry['limit_gib']:.0f} GiB)")
     for name in ("moe_gmm", "moe_gmm_down"):
         launches[name] += launch_launches[name]
         timings[name]["launch_phase"] = dict(

@@ -15,12 +15,12 @@ Usage:
 Artifacts land in experiments/torch/dryrun/<arch>__<shape>__<mesh>.json.
 
 The record keeps the reference's keys.  ``argument_bytes`` is exact (the
-local shard bytes of every argument); ``peak_estimate_bytes`` is
-``MemTracker``'s peak of the live local tensors over the step, the
-arguments included, and ``temp_bytes`` that peak less the arguments;
-``alias_bytes`` are the arguments the step updates in place (a serving
-cache); ``cost`` holds the counted FLOPs (products only) and eager operand
-bytes (``launch/trace.py``).
+local shard bytes of every argument); ``peak_estimate_bytes`` is the
+peak of the rank's live local tensors over the step
+(``trace.rank_mem_tracker``), the arguments included, and ``temp_bytes``
+that peak less the arguments; ``alias_bytes`` are the arguments the step
+updates in place (a serving cache); ``cost`` holds the counted FLOPs
+(products only) and eager operand bytes (``launch/trace.py``).
 """
 from __future__ import annotations
 

@@ -57,7 +57,8 @@ from . import hw
 from .cells import (CellBuild, argument_bytes, build_cell, materialize_cell,
                     tree_local_bytes)
 from .mesh import fake_production_mesh
-from .trace import Collective, StepCounter, card_redistributions
+from .trace import (Collective, StepCounter, card_redistributions,
+                    rank_mem_tracker)
 
 ART_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" / "torch" / "roofline"
 
@@ -91,9 +92,9 @@ def trace_cell(cell: CellBuild, *, memory: bool = False) -> dict:
     ``parse_collectives`` record), ``output_bytes`` and
     ``read_argument_bytes`` (the local bytes of the tensor arguments the
     step needs as inputs, ``StepCounter.needs``: what a jitted module keeps
-    as arguments).  With ``memory``,
-    also ``peak_bytes``: ``MemTracker``'s peak of the live local tensors,
-    the arguments included."""
+    as arguments).  With ``memory``, also ``peak_bytes``: the peak of the
+    rank's live local tensors (``trace.rank_mem_tracker``), the arguments
+    included."""
     if cell.model.device.type != "meta":
         raise ValueError("trace_cell traces a cell built on device='meta'")
     args = materialize_cell(cell, None)
@@ -101,8 +102,7 @@ def trace_cell(cell: CellBuild, *, memory: bool = False) -> dict:
     tracker = None
     with card_redistributions():
         if memory:
-            from torch.distributed._tools.mem_tracker import MemTracker
-            tracker = MemTracker()
+            tracker = rank_mem_tracker()
             tracker.track_external(*[t for t in tree_leaves(args)
                                      if isinstance(t, torch.Tensor)])
             with tracker, counter:

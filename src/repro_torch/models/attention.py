@@ -19,14 +19,15 @@ local call is the whole computation for those rows and heads.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention import flash_attention
-from .layers import (apply_rope, constrain, rmsnorm, rope_angles,
-                     tp_project_rs)
+from ..parallel.sharding import placements
+from .layers import (apply_rope, constrain, constrain_spec, rmsnorm,
+                     rope_angles, tp_project_rs)
 from .param import ParamSpec
 
 NEG_INF = -1e30
@@ -293,6 +294,69 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     }
 
 
+def _write_rows(buf: torch.Tensor, rows: torch.Tensor, idx: int) -> None:
+    """``buf[:, idx:idx + Sq] = rows`` in place.  On a mesh each rank
+    writes its own shard: the new rows take the buffer's placements (the
+    cache rules never split dim 1), so no strategy can gather the cache."""
+    rows = rows.to(torch.bfloat16)
+    if isinstance(buf, DTensor):
+        rows = rows.redistribute(buf.device_mesh, buf.placements).to_local()
+        buf = buf.to_local()
+    buf[:, idx:idx + rows.shape[1]] = rows
+
+
+def _mla_heads(cfg: ModelConfig, q, ckv, krope, w_uk, w_uv, qpos, kv_valid):
+    """Per-head K / V reconstituted from the latents, the rope key broadcast
+    over the heads, and the attend: q (B, Sq, H, 1, Dq), ckv (B, T, L),
+    krope (B, T, R); returns (B, Sq, H, Dv)."""
+    m = cfg.mla
+    k_nope = torch.einsum("btl,lhk->bthk", ckv, w_uk)
+    v = torch.einsum("btl,lhk->bthk", ckv, w_uv)
+    H = k_nope.shape[2]
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *krope.shape[:2], H, m.qk_rope_dim)], dim=-1)
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
+    out = attend(q, k, v, qpos, kpos, causal=True, kv_valid=kv_valid,
+                 kv_chunk=cfg.attn_chunk)
+    return out.reshape(*q.shape[:3], m.v_head_dim)
+
+
+def _mla_heads_local(cfg: ModelConfig, q, ckv, krope, w_uk, w_uv, qpos,
+                     kv_valid):
+    """:func:`_mla_heads` on DTensors, every placement pinned: q and the
+    output split on the batch over the data dims and on the heads over
+    "model" (where they divide), the latents on the batch and whole over
+    "model", the up-projections on the heads; each rank reconstitutes only
+    its (B/dp, T, H/model) block of K / V.  The reference pins the heads
+    with sharding constraints, which DTensor's strategies may not honour
+    (they differ between torch releases).  An input whole over a mesh dim
+    that splits the computation gets a partial gradient there."""
+    mesh = cfg.mesh
+
+    def pl(t, template):
+        return placements(constrain_spec(tuple(t.shape), cfg, template), mesh)
+
+    q_pl = pl(q, ("dp", None, "model", None, None))
+    kv_pl = pl(ckv, ("dp", None, None))
+    w_pl = pl(w_uk, (None, "model", None))
+    split = [isinstance(p, Shard) for p in q_pl]
+
+    def grad_pl(pls):
+        return tuple(p if isinstance(p, Shard) else
+                     Partial() if s else Replicate()
+                     for p, s in zip(pls, split))
+
+    pos_pl = (Replicate(),) * mesh.ndim if isinstance(qpos, DTensor) else None
+    ins = (q_pl, kv_pl, kv_pl, w_pl, w_pl, pos_pl)
+    return local_map(
+        lambda *a: _mla_heads(cfg, *a, kv_valid),
+        out_placements=(q_pl,), in_placements=ins,
+        in_grad_placements=tuple(None if p is None else grad_pl(p)
+                                 for p in ins),
+        device_mesh=mesh, redistribute_inputs=True)(
+            q, ckv, krope, w_uk, w_uv, qpos)
+
+
 def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
               positions: torch.Tensor, cache: dict | None = None,
               cache_index: int | None = None, kv_valid=None):
@@ -301,7 +365,9 @@ def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     The cache stores only (c_kv, k_rope); per-head K/V are reconstituted
     through the up-projections.  Unlike the reference, which returns a new
     cache, the port writes the new rows into ``cache`` in place (no copy of
-    the whole cache a step) and returns the same dict.
+    the whole cache a step) and returns the same dict.  On a mesh the
+    reconstitution and the attend run on each rank's shard of the batch and
+    the heads (:func:`_mla_heads_local`).
     """
     m = cfg.mla
     H = cfg.padded_heads
@@ -317,21 +383,13 @@ def apply_mla(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
 
     if cache is not None:
         idx = 0 if cache_index is None else int(cache_index)
-        cache["ckv"][:, idx:idx + Sq] = ckv.to(torch.bfloat16)
-        cache["krope"][:, idx:idx + Sq] = krope.to(torch.bfloat16)
+        _write_rows(cache["ckv"], ckv, idx)
+        _write_rows(cache["krope"], krope, idx)
         ckv, krope = cache["ckv"], cache["krope"]
-
-    k_nope = constrain(torch.einsum("btl,lhk->bthk", ckv, p["w_uk"]),
-                       cfg, ("dp", None, "model", None))
-    v = constrain(torch.einsum("btl,lhk->bthk", ckv, p["w_uv"]),
-                  cfg, ("dp", None, "model", None))
-    k = torch.cat([k_nope, krope[:, :, None, :].expand(
-        *krope.shape[:2], H, m.qk_rope_dim)], dim=-1)
 
     qg = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]   # KV=H, G=1
     qpos = positions[0] if positions.dim() == 2 else positions
-    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
-    out = attend(qg.reshape(B, Sq, H, 1, -1), k, v, qpos, kpos, causal=True,
-                 kv_valid=kv_valid, kv_chunk=cfg.attn_chunk)
-    out = out.reshape(B, Sq, H, m.v_head_dim)
+    heads = _mla_heads_local if isinstance(qg, DTensor) else _mla_heads
+    out = heads(cfg, qg.reshape(B, Sq, H, 1, -1), ckv, krope, p["w_uk"],
+                p["w_uv"], qpos, kv_valid)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache

@@ -17,7 +17,10 @@ devices, so the test process's JAX keeps its own device count.
   their logits, or the train step's metrics and new state (``(params,
   (mu, nu, master, count))``, numpy leaves, as
   ``convert.train_state_from_jax`` takes it) from the parameters as drawn
-  and, under ``"float32"``, cast to float32.
+  and, under ``"float32"``, cast to float32.  DeepSeek-V2-Lite's record
+  also holds ``"serve"``: on the same parameters, the jitted model's
+  prefill of ``SERVE_PROMPT`` tokens into a ``SERVE_LEN``-deep cache and
+  ``SERVE_STEPS`` decode steps on seeded tokens (:func:`serve_numbers`).
 """
 import os
 import pickle
@@ -34,6 +37,7 @@ KINDS = {"train": (64, 8), "prefill": (64, 4), "decode": (64, 4)}   # S, B
 SHARDED = {"qwen2-0.5b": "train", "deepseek-v2-lite-16b": "prefill"}
 GRAD_ACCUM = 2
 SEED = 0
+SERVE_PROMPT, SERVE_LEN, SERVE_STEPS = 60, 64, 2
 
 
 def shape_of(kind):
@@ -55,6 +59,35 @@ def batch_of(cfg, shape, seed: int = SEED) -> dict:
         else:
             out[name] = rng.standard_normal(s.shape).astype(
                 ml_dtypes.bfloat16).astype(np.float32)
+    return out
+
+
+def serve_numbers(cfg, params, B: int) -> dict:
+    """The jitted model's (no mesh) prefill of a seeded ``(B,
+    SERVE_PROMPT)`` prompt into a ``SERVE_LEN``-deep cache, then
+    ``SERVE_STEPS`` decode steps on seeded tokens: the prompt, the tokens
+    and the three calls' logits (float32), from ``params`` (``"logits"``)
+    and from them cast to float32 (``"logits_f32"``)."""
+    import jax.numpy as jnp
+    from repro.models import get_model
+    model = get_model(cfg)
+    rng = np.random.default_rng(SEED + 1)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (B, SERVE_PROMPT)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size,
+                          (SERVE_STEPS, B, 1)).astype(np.int32)
+    prefill, decode = jax.jit(model.prefill), jax.jit(model.decode_step)
+    out = {"prompt": prompt, "tokens": tokens, "len": SERVE_LEN}
+    for key, p in (("logits", params), ("logits_f32", jax.tree.map(
+            lambda a: a.astype(jnp.float32), params))):
+        logits, cache = prefill(p, {"tokens": jnp.asarray(prompt)},
+                                model.init_cache(B, SERVE_LEN))
+        calls = [logits]
+        for i, tok in enumerate(tokens):
+            logits, cache = decode(p, jnp.asarray(tok), cache,
+                                   jnp.int32(SERVE_PROMPT + i))
+            calls.append(logits)
+        out[key] = [np.asarray(x.astype(jnp.float32)) for x in calls]
     return out
 
 
@@ -126,7 +159,9 @@ def main():
                 cache = cell.model.init_cache(shape.global_batch,
                                               shape.seq_len)
                 logits, _ = fn(params, jbatch, cache)
-                result = {"logits": np.asarray(logits.astype(jnp.float32))}
+                result = {"logits": np.asarray(logits.astype(jnp.float32)),
+                          "serve": serve_numbers(cfg, params,
+                                                 shape.global_batch)}
             with open(os.path.join(out, f"{arch}.pkl"), "wb") as f:
                 pickle.dump({"params": jax.tree.map(np.asarray, params),
                              "batch": batch, "result": result}, f)

@@ -553,9 +553,62 @@ def launch_cells_on_ranks(_mesh, workdir: str, cases_json: str) -> None:
     for arch, kind, S, B, ga, shape, tcfg, f32 in json.loads(cases_json):
         mesh = init_device_mesh("cpu", tuple(shape),
                                 mesh_dim_names=("data", "model"))
-        launch_cell_on_mesh(mesh, workdir, arch, kind, S, B, ga,
-                            "x".join(map(str, shape)) + "_f32" * f32, tcfg,
+        tag = "x".join(map(str, shape)) + "_f32" * f32
+        if kind == "serve":
+            serve_on_mesh(mesh, workdir, arch, tag, f32)
+            continue
+        launch_cell_on_mesh(mesh, workdir, arch, kind, S, B, ga, tag, tcfg,
                             f32)
+
+
+def serve_on_mesh(mesh, workdir: str, arch: str, tag: str,
+                  float32: bool = False) -> None:
+    """The reduced ``arch`` served on the mesh from the reference's
+    parameters (``workdir/<arch>.pkl``, its ``"serve"`` record; under
+    ``float32`` the parameters and the cache cast to float32): the
+    parameters, the cache and each call's tokens DTensors of the launch
+    cells' shardings, the prompt's prefill and the decode steps as the
+    launch cells run them; rank 0 writes the gathered logits of each call
+    to ``workdir/<arch>_serve_<tag>.pkl``."""
+    import pickle
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models import get_model
+    from repro_torch.models.param import tree_map
+    from repro_torch.parallel import sharding as shd
+    from repro_torch.parallel.collectives import full_tensor
+    from repro_torch.train.step import build_decode_step, build_prefill_step
+
+    with open(Path(workdir) / f"{arch}.pkl", "rb") as f:
+        ref = pickle.load(f)
+    serve = ref["result"]["serve"]
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(
+        cfg.with_parallelism(shd.mesh_shape(mesh)["model"]), mesh=mesh)
+    model = get_model(cfg, device="cpu")
+    cast = (lambda t: t.float()) if float32 else (lambda t: t)
+    params = shd.shard_tree(
+        tree_map(cast, params_from_jax(ref["params"], device="cpu")),
+        shd.param_shardings(model.structure(), mesh))
+    prompt = torch.from_numpy(serve["prompt"])
+    cache = tree_map(cast, model.init_cache(prompt.shape[0], serve["len"]))
+    cache = shd.shard_tree(cache, shd.cache_shardings(cache, mesh))
+
+    def tokens(t):
+        return shd.shard_tree(t, shd.batch_shardings(t, mesh))
+
+    logits, cache = build_prefill_step(model)(
+        params, {"tokens": tokens(prompt)}, cache)
+    out = [full_tensor(logits).float().numpy()]
+    decode = build_decode_step(model)
+    for i, tok in enumerate(serve["tokens"]):
+        logits, cache = decode(params, tokens(torch.from_numpy(tok)), cache,
+                               prompt.shape[1] + i)
+        out.append(full_tensor(logits).float().numpy())
+    if dist.get_rank() == 0:
+        with open(Path(workdir) / f"{arch}_serve_{tag}.pkl", "wb") as f:
+            pickle.dump(out, f)
 
 
 def launch_cell_on_mesh(mesh, workdir: str, arch: str, kind: str, S: int,

@@ -326,7 +326,7 @@ def _nodes(tr):
              list(n.market_ids), list(n.step_times)) for n in tr.nodes]
 
 
-def _hold_runs(label, jtr, tr, jout, out):
+def _hold_runs(label, jtr, tr, jout, out, *, learns=True):
     events = lambda o: [(e.step, e.kind, e.detail)  # noqa: E731
                         for e in o["events"]]
     assert events(out) == events(jout)
@@ -341,7 +341,7 @@ def _hold_runs(label, jtr, tr, jout, out):
           f"0, {LOSS_TOL:g} after): {np.array2string(rel, precision=2)}")
     assert rel[0] <= LOSS0_TOL
     assert rel.max() <= LOSS_TOL
-    assert lt[-1] < lt[0]
+    assert lt[-1] < lt[0] or not learns
 
 
 def test_elastic_trainer_matches_reference(tmp_path):
@@ -390,6 +390,30 @@ def test_elastic_trainer_forced_interruption_matches_reference(tmp_path):
     print(f"after the reclaim: loss {out['losses']} vs {jout['losses']} "
           f"({rel:.2g} relative, tolerance {LOSS_TOL:g})")
     assert rel <= LOSS_TOL
+
+
+SLOW = 4.0      # a node's speed: its gamma(20, speed / 20) step times
+
+
+def test_elastic_trainer_ejects_a_straggler_as_the_reference_does(tmp_path):
+    """One node of each trainer slowed to ``SLOW`` after provisioning: its
+    mean step time over the heartbeat window passes 2.5x the median node's
+    (whose speeds are 0.8-1.2), so both eject it at the same step and
+    re-provision through their engines."""
+    jtr, tr = _trainers(tmp_path, seed=3)
+    for t in (jtr, tr):
+        t.nodes[1].speed = SLOW
+    slow = tr.nodes[1].node_id
+    jout = jtr.train(8, minutes_per_step=1.0)
+    out = tr.train(8, minutes_per_step=1.0)
+    ejected = [(e.step, e.detail) for e in out["events"]
+               if e.kind == "straggler"]
+    assert ejected == [(ElasticConfig().heartbeat_window - 1,
+                        f"ejected node {slow}")]
+    assert slow not in {n.node_id for n in tr.nodes}
+    assert len(tr.nodes) == NODES
+    # 8 steps from the warmup: the losses are held, not their trend
+    _hold_runs("straggler", jtr, tr, jout, out, learns=False)
 
 
 # ---------------------------------------------------------------------------

@@ -878,6 +878,90 @@ def test_reduced_recurrent_lm_on_the_card_matches_cpu(cuda, arch, counter):
     assert counter.launches == n_rec
 
 
+RING_PROMPT, RING_STEPS = 2040, 24     # the 2048-slot window wraps at 2048
+
+
+def test_wrapping_ring_cache_on_the_card_matches_cpu(cuda):
+    """recurrentgemma-2b at full width, cut to one (rglru, rglru, attn)
+    unit: a prefill of 2040 tokens (B6 once in each rglru layer), then 24
+    decode steps, so the window attention's 2048-slot ring wraps.  At
+    every step each layer's update through the card (kernels) is held
+    against the CPU's plain route on the same input and a copy of the same
+    cache, within ``chip_smoke.LAYER_TOL`` (the random init's attention is
+    nearly a hard max, so whole-model logits would part by a flipped
+    argmax: ``chip_smoke.layerwise``'s walk), the stack advancing on the
+    card; the step's logits from the card's last hidden state against the
+    CPU's within 5e-2 of max; the ring's slot positions exact."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model, lm
+    from repro_torch.models.param import tree_map
+    base = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=3)
+    cfg = dataclasses.replace(base, use_pallas=True)
+    ref_cfg = dataclasses.replace(base, use_pallas=False)
+    W, total = cfg.window, RING_PROMPT + RING_STEPS
+    assert total > W
+    cpu_params = get_model(ref_cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.to(cuda), cpu_params)
+    cache = lm.init_cache(cfg, 1, total, cuda)
+    stack = chip_smoke._layer_stack(cfg, params, cache)
+    cpu_layers = [p for _, _, p, _ in
+                  chip_smoke._layer_stack(ref_cfg, cpu_params, None)]
+    ring = stack[-1][3]["pos"]
+    assert [k for k, _, _, _ in stack] == ["rglru", "rglru", "attn"]
+    assert ring.shape == (W,)
+
+    def step(tokens, pos0, decode):
+        S = tokens.shape[1]
+        positions = torch.arange(pos0, pos0 + S, dtype=torch.int32,
+                                 device=cuda)[None]
+        devs = []
+        with torch.no_grad():
+            x = lm._embed_inputs(cfg, params, tokens.to(cuda), None)
+            for (kind, moe, p, c), pc in zip(stack, cpu_layers):
+                c_cpu = tree_map(lambda t: t.cpu().clone(), c)
+                xa = lm._apply_layer(cfg, kind, moe, p, x, positions, c,
+                                     pos0, pos0 + S, decode)[0]
+                xb = lm._apply_layer(ref_cfg, kind, moe, pc, x.cpu(),
+                                     positions.cpu(), c_cpu, pos0, pos0 + S,
+                                     decode)[0]
+                upd = (xa.float() - x.float()).norm().cpu()
+                devs.append(float((xa.float().cpu() - xb.float()).norm()
+                                  / upd))
+                x = xa
+            z = lm.rmsnorm(params["final_norm"], x[:, -1:], cfg.rms_eps)
+            la = lm._logits(cfg, params, z).float().cpu()
+            lb = lm._logits(ref_cfg, cpu_params, z.cpu()).float()
+        return la, float((la - lb).abs().max() / lb.abs().max()), devs
+
+    trg.rglru_scan.launches = 0
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, RING_PROMPT)))
+    logits, dl, devs = step(prompt, 0, False)
+    assert trg.rglru_scan.launches == 2
+    worst = [dl, max(devs)]
+    for i in range(RING_STEPS + 1):
+        assert dl <= 5e-2, f"step {i}: logits {dl:.4g} of max"
+        assert max(devs) <= chip_smoke.LAYER_TOL, f"step {i}: layers {devs}"
+        if i == RING_STEPS:
+            break
+        pos = RING_PROMPT + i
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        logits, dl, devs = step(tok, pos, True)
+        worst = [max(worst[0], dl), max(worst[1], max(devs))]
+        last = pos - (pos - torch.arange(W)) % W    # slot s's newest position
+        want = torch.where(last >= 0, last, -(2 ** 30)).to(torch.int32)
+        assert torch.equal(ring.cpu(), want)
+    assert trg.rglru_scan.launches == 2          # decode steps are inline
+    print(f"ring of {W} slots wrapped by {total - W}: logits within "
+          f"{worst[0]:.4g} of max|CPU logits|, layer updates within "
+          f"{worst[1]:.4g} of their norm")
+
+
 @pytest.mark.parametrize("S", [77, 300, 4000, 4096])
 @pytest.mark.parametrize("G", [1, 7])
 @pytest.mark.parametrize("D", [64, 128])

@@ -157,6 +157,49 @@ def test_dryrun_full_width_cell():
     assert rec["collectives"]["counts"] and rec["cost"]["flops"] > 0
 
 
+def test_dryrun_deepseek_decode_cell_fits_the_card():
+    """DeepSeek-V2-Lite x decode_32k at full width on the fake 16 x 16
+    group: a rank holds 9.43 GiB of arguments (the sum of the local
+    shards' bytes) and, with each rank reconstituting only its batch rows'
+    and heads' K / V, a peak of at most 12 GiB."""
+    rec = dryrun.run_cell("deepseek-v2-lite-16b", "decode_32k", False,
+                          verbose=False, save=False)
+    assert not dist.is_initialized()
+    assert rec["status"] == "ok"
+    from repro_torch._tree import tree_flatten
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import fake_production_mesh
+    with fake_production_mesh() as mesh:
+        cell = build_cell(get_config("deepseek-v2-lite-16b"),
+                          SHAPES["decode_32k"], mesh, TrainConfig(),
+                          device="meta")
+        args = materialize_cell(cell, None)
+        local = sum(t.to_local().numel() * t.element_size()
+                    for t in tree_flatten(list(args[:3]))[0]) + 4   # index
+    mem = rec["memory"]
+    assert mem["argument_bytes"] == local
+    assert round(local / 2 ** 30, 2) == 9.43
+    assert mem["peak_estimate_bytes"] <= 12 * 2 ** 30
+    assert mem["fits_device"]
+
+
+def test_rank_mem_tracker_leaves_out_propagation_tensors():
+    """Tensors made under a fake mode entered inside the tracker (as
+    DTensor's sharding propagation makes the global shapes) are not a
+    rank's: the peak counts the rank's own meta tensor only."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.trace import rank_mem_tracker
+    tracker = rank_mem_tracker()
+    with tracker:
+        x = torch.empty(2 ** 20, dtype=torch.bfloat16, device="meta")
+        with FakeTensorMode():
+            torch.empty(2 ** 30, dtype=torch.bfloat16)
+    peak = sum(d.get("Total", 0)
+               for d in tracker.get_tracker_snapshot("peak").values())
+    assert peak == x.numel() * x.element_size()
+
+
 def test_dryrun_main_lists_cells_over_the_card(monkeypatch, capsys):
     """A traced cell whose peak exceeds ``hw.HBM_BYTES`` stays ``ok`` (the
     exit code is 0) and is listed after the summary line."""

@@ -42,6 +42,7 @@ SPAWN_TIMEOUT_S = 300        # four cells in one spawn
 KINDS = {"train": (64, 8), "prefill": (64, 4)}   # S, B
 SHARDED = {"qwen2-0.5b": "train", "deepseek-v2-lite-16b": "prefill"}
 F32_ARCH = "qwen2-0.5b"      # its train cell also runs from float32 weights
+SERVE_ARCH = "deepseek-v2-lite-16b"   # also served: a prefill, two decode steps
 GRAD_ACCUM = 2
 # a short warm-up, so that the first step's learning rate moves the bf16
 # parameters (at the default 100 steps it is under half their ulp)
@@ -97,6 +98,8 @@ def ranks(tmp_path_factory):
              for shape in MESH_SHAPES.values()]
     cases.append([F32_ARCH, "train", *KINDS["train"], GRAD_ACCUM,
                   list(MESH_SHAPES["2x2"]), STEP_KW, True])
+    cases += [[SERVE_ARCH, "serve", 0, 0, 0, list(MESH_SHAPES["2x2"]), {},
+               f32] for f32 in (False, True)]
     R.spawn("launch_cells_on_ranks", work, str(work), json.dumps(cases),
             timeout=SPAWN_TIMEOUT_S)
     return work
@@ -307,3 +310,60 @@ def test_sharded_train_step_in_float32_matches_one_rank_and_reference(ranks):
                     ("params", "master", "mu", "nu"))
         _hold_state(f"{label}: {name}", a, b, args[0], F32_STEP_TOL,
                     ("master step",))
+
+
+def _serve_one_rank(serve, params, float32: bool) -> list:
+    """The mesh-free (one rank's) serve of ``serve``'s prompt and tokens;
+    under ``float32`` the parameters and the latent cache in float32."""
+    from repro_torch.models import get_model
+    model = get_model(get_config(SERVE_ARCH).reduced(), device="cpu")
+    cast = (lambda t: t.float()) if float32 else (lambda t: t)
+    params = tree_map(cast, params)
+    prompt = torch.from_numpy(serve["prompt"])
+    cache = tree_map(cast, model.init_cache(prompt.shape[0], serve["len"]))
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    out = [logits]
+    for i, tok in enumerate(serve["tokens"]):
+        logits, cache = model.decode_step(params, torch.from_numpy(tok),
+                                          cache, prompt.shape[1] + i)
+        out.append(logits)
+    return [x.float().numpy() for x in out]
+
+
+def test_sharded_mla_serving_matches_one_rank_and_reference(ranks):
+    """The reduced DeepSeek-V2-Lite served on (2, 2): a prefill of 60
+    tokens into a 64-deep latent cache, then two decode steps, each rank
+    reconstituting only its batch rows' and heads' K / V from the cache
+    (``attention._mla_heads_local``).  From float32 weights and a float32
+    latent cache, nothing is rounded for the random model to amplify:
+    every call's logits within ``F32_RTOL`` of max of the mesh-free path
+    (one rank's), and within ``LOGIT_TOL`` of the reference's jitted model
+    on the same weights (its cache is bf16).  In bf16 the mesh-free path
+    is held against the reference at ``LOGIT_TOL``; the four ranks' bf16
+    run, whose TP partial sums the random model amplifies (3-7% of max
+    here), is printed."""
+    with open(ranks / f"{SERVE_ARCH}.pkl", "rb") as f:
+        ref = pickle.load(f)
+    serve = ref["result"]["serve"]
+    params = params_from_jax(ref["params"], device="cpu")
+    calls = ("prefill", "decode 1", "decode 2")
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    for tag, key, f32 in (("2x2", "logits", False),
+                          ("2x2_f32", "logits_f32", True)):
+        with open(ranks / f"{SERVE_ARCH}_serve_{tag}.pkl", "rb") as f:
+            got = pickle.load(f)
+        one = _serve_one_rank(serve, params, f32)
+        assert len(got) == len(one) == len(serve[key]) == len(calls)
+        for call, g, o, w in zip(calls, got, one, serve[key]):
+            print(f"{SERVE_ARCH} {tag} {call}: four ranks vs one "
+                  f"{rel(g, o):.4g} of max, vs the reference {rel(g, w):.4g}"
+                  f", one rank vs the reference {rel(o, w):.4g}")
+            assert g.shape == o.shape == w.shape
+            assert np.isfinite(g).all()
+            assert rel(o, w) <= LOGIT_TOL
+            if f32:
+                assert rel(g, o) <= F32_RTOL
+                assert rel(g, w) <= LOGIT_TOL
