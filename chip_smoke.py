@@ -571,6 +571,45 @@ PREFIX_BUDGET_S = 120.0
 # B4's plain version takes ~0.1 s a call at llava's shape: timed over fewer
 PREFIX_PLAIN_REPS = 5
 
+# registry phase: the four registry architectures no other phase runs, at
+# their published widths, served (LM_BATCH x LM_PROMPT prompts, LM_NEW
+# tokens) and run forward; weights drawn on the card from LM_SEED
+REGISTRY_ARCHS = ("qwen3-32b", "llama4-scout-17b-a16e", "qwen1.5-4b",
+                  "qwen1.5-0.5b")
+# depth cuts: llama4-scout's 48 layers are 107.8 B parameters (215.6 GB of
+# bf16); 12 of them (28.49 B, 57.0 GB) fit the card beside the forward's
+# float32 layer.  The others run at full depth.
+REGISTRY_DEPTH = {"llama4-scout-17b-a16e": 12}
+# forward (batch, positions): llama4 one 4096-token sequence, the qwen1.5
+# pair 4 and 8; qwen3-32b cut to one of 2048 (REGISTRY_CUTS)
+REGISTRY_FWD = {"qwen3-32b": (1, 2048), "llama4-scout-17b-a16e": (1, 4096),
+                "qwen1.5-4b": (4, 4096), "qwen1.5-0.5b": (8, 4096)}
+# cuts other than depth, printed on the architecture's line: qwen3-32b's
+# forward over 4096 positions peaks at 81.1 GB of the card's 85.0 (65.5 GB
+# of weights, the plain route's float32 scores in the layer gate) when it
+# runs alone, and after the earlier phases the allocator's fragments left
+# no room for its 4 GiB score tensor
+REGISTRY_CUTS = {"qwen3-32b": "forward 1 x 2048 of 1 x 4096"}
+REGISTRY_FWD_CALLS = 3
+REGISTRY_BUDGET_S = 150.0          # an architecture's seconds
+# A forward layer's update through B4 against the plain route and a float32
+# layer.  qwen3-32b's q / k norms bound its scores (about N(0, 1)): its
+# softmax is soft, and a layer holds to LAYER_TOL.  The other three keep the
+# random init's nearly hard max (their scores spread by ~128 to ~290, from
+# the init's fan-in over heads; see FWD_LAYER_TOL), and are held as
+# qwen2-0.5b is.  Measured by this phase on an NVIDIA H100 80GB HBM3 (700
+# W), the worst layer: qwen3-32b 0.0179 from float32 on both routes alike
+# (B4 and the plain route 0.0059 apart: the layer's own bf16 roundings);
+# llama4 0.0896 (its plain route 0.113 from float32), qwen1.5-4b 0.0679,
+# qwen1.5-0.5b 0.0454.
+REGISTRY_FWD_LAYER_TOL = {"qwen3-32b": LAYER_TOL,
+                          "llama4-scout-17b-a16e": FWD_LAYER_TOL,
+                          "qwen1.5-4b": FWD_LAYER_TOL,
+                          "qwen1.5-0.5b": FWD_LAYER_TOL}
+# bytes that may stay allocated on the card when the phase starts (what
+# earlier phases left behind)
+REGISTRY_START_BYTES = 1 << 30
+
 # H100 SXM published peaks (NVIDIA data sheet), from the port's hardware
 # model: HBM3 bandwidth, float32 rate outside the tensor cores, dense bf16
 # and tf32 tensor-core rates.  Without the repo beside this script the
@@ -3516,6 +3555,31 @@ def bf16_closeness(got, want, floor=None):
     return int(far.sum()), int(bad.sum()), float(d.max())
 
 
+def hold_flash_call(torch, label, args, got, plain):
+    """One B4 launch against its plain version (``hold_flash``'s contract:
+    one bf16 ulp or ``FLASH_P_ULP`` * max|v|)."""
+    floor = FLASH_P_ULP * float(args[2].abs().max())
+    far, bad, err = bf16_closeness(got, plain, floor)
+    if bad or not bool(torch.isfinite(got).all()):
+        fail(f"{label}: B4 at {tuple(args[0].shape)} differs from its plain "
+             f"version in {bad} elements beyond one bf16 ulp and "
+             f"{FLASH_P_ULP} x max|v| = {floor:.3g} (max |d| {err:.3g})")
+    return dict(beyond_one_ulp=far, max_abs_err=err, bound=floor,
+                elements=got.numel())
+
+
+def hold_gmm_call(torch, label, name, args, got, plain):
+    """One B7 or B8 launch against its plain version (``hold_gmm``'s
+    contract: one bf16 ulp or 1e-3 * max)."""
+    far, bad, err = bf16_closeness(got, plain)
+    if bad:
+        fail(f"{label}: {name} at {tuple(args[0].shape)} differs from its "
+             f"plain version in {bad} elements beyond one bf16 ulp and 1e-3 "
+             "* max")
+    return dict(name=name, C=args[0].shape[1], beyond_one_ulp=far,
+                max_abs_err=err, elements=got.numel())
+
+
 def generate(torch, model, params, prompt, new: int, extra=None, watch=None):
     """Greedy serving: prefill, then ``new - 1`` decode steps.  Returns the
     (B, new) tokens, the (B, new, V) float32 logits they were picked from,
@@ -3805,14 +3869,10 @@ def hold_gmm(torch, arch, captured, c_prefill, c_decode):
         fn = getattr(gmm, name)
         got, plain = fn(*args), fn(*args, backend="torch")
         torch.cuda.synchronize()
-        far, bad, err = bf16_closeness(got, plain)
-        checks[f"{name}@{phase}"] = dict(shape=list(args[0].shape),
-                                         beyond_one_ulp=far, max_abs_err=err,
-                                         elements=got.numel())
-        if bad:
-            fail(f"{arch}: {name} at {phase} differs from its plain version "
-                 f"in {bad} elements beyond one bf16 ulp and 1e-3 * max")
-        max_err[name] = max(max_err.get(name, 0.0), err)
+        rec = hold_gmm_call(torch, f"{arch} {phase}", name, args, got, plain)
+        checks[f"{name}@{phase}"] = dict(shape=list(args[0].shape), **{
+            k: rec[k] for k in ("beyond_one_ulp", "max_abs_err", "elements")})
+        max_err[name] = max(max_err.get(name, 0.0), rec["max_abs_err"])
         shapes.setdefault(name, {})[phase] = gmm_times(
             torch, gmm, name, args, c_prefill if phase == "prefill" else c_decode)
     if len(checks) != 4:
@@ -3905,7 +3965,9 @@ def lm_path(cfg):
     from repro_torch.kernels import moe_gmm, rglru_scan, rwkv6_scan
     from repro_torch.models import moe, rglru, rwkv6
     if cfg.moe:
-        # DeepSeek-V2-Lite: B7/B8 in every MoE layer, at prefill and decode
+        # an MoE model (DeepSeek-V2-Lite, llama4-scout): B7/B8 in every MoE
+        # layer, at prefill and decode, at the capacities the config gives
+        # the served tokens
         n = cfg.num_layers - cfg.moe.first_dense_layers
         c_prefill = moe.capacity_of(cfg, LM_BATCH * LM_PROMPT)
         c_decode = moe.capacity_of(cfg, LM_BATCH)
@@ -4098,19 +4160,13 @@ def hold_flash(torch, captured, prefixes=FLASH_PREFIXES, seeded=True):
         got = fa.flash_attention(*args, scale=scale)
         plain = fa.flash_attention(*args, scale=scale, backend="torch")
         torch.cuda.synchronize()
-        floor = FLASH_P_ULP * float(args[2].abs().max())
-        far, bad, err = bf16_closeness(got, plain, floor)
+        rec = hold_flash_call(torch, f"flash_attention at {label}", args, got,
+                              plain)
         checks[label] = dict(q_shape=list(args[0].shape),
-                             kv_heads=args[1].shape[2], beyond_one_ulp=far,
+                             kv_heads=args[1].shape[2],
                              beyond_b7_b8_contract=bf16_closeness(got, plain)[1],
-                             max_abs_err=err, bound=floor,
-                             max_abs_plain=float(plain.abs().max()),
-                             elements=got.numel())
-        if bad or not bool(torch.isfinite(got).all()):
-            fail(f"flash_attention at {label} differs from its plain version "
-                 f"in {bad} elements beyond one bf16 ulp and {FLASH_P_ULP} x "
-                 f"max|v| = {floor:.3g} (max |d| {err:.3g})")
-        max_err = max(max_err, err)
+                             max_abs_plain=float(plain.abs().max()), **rec)
+        max_err = max(max_err, rec["max_abs_err"])
     return checks, max_err
 
 
@@ -4588,6 +4644,369 @@ def prefix_phase(torch, arch):
     del params, batch
     torch.cuda.empty_cache()
     return launches, timing, report
+
+
+def serve_layerwise(torch, cfg, ref_cfg, params, prompt):
+    """Each layer's update through the cache (``cfg``: the prefill over the
+    prompt, then the first greedy decode step) against the same layer of
+    the cacheless plain forward (``ref_cfg``) over the prompt and that
+    token, at the same positions and on the same input: the reference's
+    ``test_serve_consistency`` property, layer by layer.  The stack
+    advances on the cacheless forward's output.  Returns the per-layer
+    |update_cached - update_full| / |update_full| at prefill and at the
+    decode step."""
+    from repro_torch.models import lm
+    B, S = prompt.shape
+    dev = prompt.device
+    with torch.no_grad():
+        logits, _ = lm.prefill(cfg, params, prompt,
+                               lm.init_cache(cfg, B, S + 1, dev))
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        del logits
+        x = lm._embed_inputs(cfg, params, torch.cat([prompt, tok], 1), None)
+        pos = torch.arange(S + 1, dtype=torch.int32, device=dev)[None].expand(
+            B, S + 1)
+        cache = lm.init_cache(cfg, B, S + 1, dev)
+        pre, dec = [], []
+        for kind, moe, p, c in _layer_stack(cfg, params, cache):
+            full = lm._apply_layer(ref_cfg, kind, moe, p, x, pos, None, None,
+                                   None, False)[0]
+            got = (lm._apply_layer(cfg, kind, moe, p, x[:, :S], pos[:, :S], c,
+                                   0, S, False)[0],
+                   lm._apply_layer(cfg, kind, moe, p, x[:, S:], pos[:, S:], c,
+                                   S, S + 1, True)[0])
+            for y, rows, out in zip(got, (slice(0, S), slice(S, S + 1)),
+                                    (pre, dec)):
+                upd = full[:, rows].float() - x[:, rows].float()
+                out.append(float((y.float() - full[:, rows].float()).norm()
+                                 / upd.norm()))
+            x = full
+    return pre, dec
+
+
+class held_launches:
+    """While active, every call of the kernel wrappers ``wrappers`` (name
+    -> (module, attribute)) that the model makes runs the kernel, then its
+    plain version on the same inputs, and is held: ``hold(name, args, got,
+    plain)`` returns the call's record (and fails the run on a miss).
+    ``first`` keeps each (name, phase)'s first inputs (``phase(name,
+    args)``) for the timings.  The launches made here are the warm-up's,
+    not the main path's."""
+
+    def __init__(self, torch, wrappers, hold, phase):
+        self.torch, self.wrappers, self.hold, self.phase = (torch, wrappers,
+                                                            hold, phase)
+        self.records, self.first, self.real = [], {}, {}
+
+    def __enter__(self):
+        for name, (module, attr) in self.wrappers.items():
+            real = self.real[name] = getattr(module, attr)
+
+            def wrapper(*args, _name=name, _real=real, **kw):
+                got = _real(*args, **kw)
+                plain = _real(*args, backend="torch", **kw)
+                self.torch.cuda.synchronize()
+                self.records.append(self.hold(_name, args, got, plain))
+                self.first.setdefault((_name, self.phase(_name, args)), args)
+                return got
+
+            setattr(module, attr, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for name, (module, attr) in self.wrappers.items():
+            setattr(module, attr, self.real[name])
+
+
+def held_summary(records, key="max_abs_err") -> dict:
+    """How many launches were held and their worst error."""
+    return dict(held=len(records),
+                max_abs_err=max((r[key] for r in records), default=0.0),
+                beyond_one_ulp=sum(r["beyond_one_ulp"] for r in records))
+
+
+def registry_phase(torch, arch):
+    """``arch``, one of the registry architectures no other phase runs, at
+    its published widths (depth as ``REGISTRY_DEPTH`` cuts it): served
+    through ``Model.prefill`` and greedy ``decode_step``s (B7/B8 in every
+    MoE layer; a dense model's serve path runs no kernel), then run forward
+    through ``Model.forward`` with B4 in every layer.  Every kernel launch
+    of the warm-up runs is held against its plain version; the main-path
+    runs count launches from 0.  Returns (launches on the main paths,
+    kernel timings, the report)."""
+    from dataclasses import replace
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as gmm
+    from repro_torch.models import attention, get_model, moe
+    from repro_torch.models.param import tree_leaves
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions: full fp32
+    torch.cuda.empty_cache()
+    start_bytes = torch.cuda.memory_allocated()
+    if start_bytes > REGISTRY_START_BYTES:
+        fail(f"{arch}: {start_bytes} bytes still allocated when the registry "
+             f"phase starts (> {REGISTRY_START_BYTES})")
+    published = get_config(arch)
+    depth = REGISTRY_DEPTH.get(arch, published.num_layers)
+    cfg = replace(published, use_pallas=True, num_layers=depth)
+    ref_cfg = replace(cfg, use_pallas=False)
+    Bf, Sf = REGISTRY_FWD[arch]
+    cuts = ([f"depth {depth} of {published.num_layers}"]
+            if depth != published.num_layers else [])
+    cuts += [REGISTRY_CUTS[arch]] if arch in REGISTRY_CUTS else []
+    model = get_model(cfg, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(LM_SEED))
+    torch.cuda.synchronize()
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    capacity = torch.cuda.get_device_properties(0).total_memory
+    report = dict(arch=arch, layers=depth, published_layers=published.num_layers,
+                  cuts=cuts, params=model.num_params(), weight_bytes=weight_bytes,
+                  start_bytes=start_bytes,
+                  param_bytes_allocated=torch.cuda.memory_allocated(),
+                  device_bytes=capacity, init_s=time.perf_counter() - t0,
+                  heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+                  qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias,
+                  tied_embeddings=cfg.tie_embeddings)
+    print(f"{arch}: {depth} of {published.num_layers} layers, "
+          f"{report['params']} parameters, {weight_bytes / 1e9:.2f} GB of "
+          f"weights drawn in {report['init_s']:.1f} s ({start_bytes} bytes "
+          "allocated before)")
+    seconds = {"init": time.perf_counter() - t_start}
+
+    # serving: prefill + LM_NEW - 1 greedy decode steps of LM_BATCH x
+    # LM_PROMPT prompts; B4 never runs (the cached prefill passes kv_valid)
+    t0 = time.perf_counter()
+    prompt = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))).to(DEVICE)
+    gmm_wrappers = {"moe_gmm": (moe, "moe_gmm"),
+                    "moe_gmm_down": (moe, "moe_gmm_down")}
+    path = lm_path(cfg) if cfg.moe else None
+    with held_launches(
+            torch, gmm_wrappers if cfg.moe else {},
+            lambda name, a, got, plain: hold_gmm_call(
+                torch, f"{arch} serve", name, a, got, plain),
+            lambda name, a: path["phase"](a)) as serve_held:
+        generate(torch, model, params, prompt, 3)            # warm-up
+    fa.flash_attention.launches = 0
+    gmm.moe_gmm.launches = gmm.moe_gmm_down.launches = 0
+    toks, rows, prefill_ms, step_ms = generate(torch, model, params, prompt,
+                                               LM_NEW)
+    serve_launches = {"flash_attention": fa.flash_attention.launches,
+                      "moe_gmm": gmm.moe_gmm.launches,
+                      "moe_gmm_down": gmm.moe_gmm_down.launches}
+    want = {"flash_attention": 0,
+            "moe_gmm": path["launches"] if cfg.moe else 0,
+            "moe_gmm_down": path["launches"] if cfg.moe else 0}
+    for name, n in serve_launches.items():
+        if n != want[name]:
+            fail(f"{arch}: {name} launched {n} times in one prefill and "
+                 f"{LM_NEW - 1} decode steps, not {want[name]}"
+                 + (f" ({path['per']})" if cfg.moe and name != "flash_attention"
+                    else ""))
+    if not bool(torch.isfinite(rows).all()):
+        fail(f"{arch}: non-finite logits while serving")
+    if tuple(toks.shape) != (LM_BATCH, LM_NEW):
+        fail(f"{arch}: generated {tuple(toks.shape)} tokens")
+    p50 = float(np.percentile(step_ms, 50))
+    floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    report["serve"] = dict(
+        batch=LM_BATCH, prompt=LM_PROMPT, new_tokens=LM_NEW,
+        prefill_ms=prefill_ms,
+        decode_ms={"p50": p50, "p90": float(np.percentile(step_ms, 90)),
+                   "max": float(np.max(step_ms)), "steps": len(step_ms)},
+        decode_tokens_per_s=LM_BATCH / (p50 / 1e3),
+        tokens_per_s=LM_BATCH * LM_NEW / ((prefill_ms + sum(step_ms)) / 1e3),
+        weight_read_floor_ms=floor_ms, decode_p50_over_floor=p50 / floor_ms,
+        launches=serve_launches)
+    timings = {}
+    if cfg.moe:
+        report["serve"]["held"] = held_summary(serve_held.records)
+        if len(serve_held.records) != 3 * 2 * path["layers"]:
+            fail(f"{arch}: held {len(serve_held.records)} B7/B8 launches in "
+                 f"the warm-up's prefill and two decode steps, not "
+                 f"{3 * 2 * path['layers']}")
+        checks, gmm_timings = path["hold"](torch, arch, serve_held.first)
+        report["serve"]["kernel_checks"] = checks
+        for name, t in gmm_timings.items():
+            timings[name] = dict(t, held=held_summary(
+                [r for r in serve_held.records if r["name"] == name]))
+        # the kernel route against the plain route (einsum experts), layer
+        # by layer on the same inputs and cache
+        pre, dec = layerwise(torch, cfg, ref_cfg, params, prompt)
+        gate = "kernel route against the plain route, through the cache"
+    else:
+        # no kernel on this path: each layer through the cache against the
+        # cacheless plain forward at the same positions
+        pre, dec = serve_layerwise(torch, cfg, ref_cfg, params, prompt)
+        gate = "through the cache against the cacheless plain forward"
+    worst = max(pre + dec)
+    report["serve"]["layerwise_update_rel_dev"] = dict(
+        gate=gate, tolerance=LAYER_TOL, worst=worst, prefill=pre, decode=dec)
+    if worst > LAYER_TOL:
+        fail(f"{arch}: a layer's update {gate} differs by {worst:.3g} of its "
+             f"norm (> {LAYER_TOL})")
+    del toks, rows, prompt
+    torch.cuda.empty_cache()
+    seconds["serve"] = time.perf_counter() - t0
+
+    # the forward: B4 in every layer (and B7/B8 in llama4's)
+    t0 = time.perf_counter()
+    batch = make_pipeline(cfg, Sf, Bf, seed=0, device=DEVICE).batch(0)
+    del batch["labels"]
+    wrappers = {"flash_attention": (attention, "flash_attention")}
+    if cfg.moe:
+        wrappers.update(gmm_wrappers)
+
+    def hold_fwd(name, a, got, plain):
+        if name == "flash_attention":
+            return dict(name=name, **hold_flash_call(torch, f"{arch} forward",
+                                                    a, got, plain))
+        return hold_gmm_call(torch, f"{arch} forward", name, a, got, plain)
+
+    with held_launches(torch, wrappers, hold_fwd,
+                       lambda name, a: "forward") as fwd_held:
+        with torch.no_grad():
+            model.forward(params, batch, train=False)        # warm-up
+    q, k, v = fwd_held.first[("flash_attention", "forward")]
+    expect = (Bf, Sf, cfg.num_heads, cfg.head_dim)
+    if tuple(q.shape) != expect or k.shape[2] != cfg.num_kv_heads:
+        fail(f"{arch}: B4 was called at {tuple(q.shape)} with {k.shape[2]} KV "
+             f"heads, not {expect} with {cfg.num_kv_heads}")
+    fa.flash_attention.launches = 0
+    gmm.moe_gmm.launches = gmm.moe_gmm_down.launches = 0
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        logits, _ = model.forward(params, batch, train=False)
+    torch.cuda.synchronize()
+    fwd_launches = {"flash_attention": fa.flash_attention.launches,
+                    "moe_gmm": gmm.moe_gmm.launches,
+                    "moe_gmm_down": gmm.moe_gmm_down.launches}
+    n_moe = depth if cfg.moe else 0
+    for name, n in fwd_launches.items():
+        want = depth if name == "flash_attention" else n_moe
+        if n != want:
+            fail(f"{arch}: {name} launched {n} times in one forward, not "
+                 f"{want}")
+    held = {name: [r for r in fwd_held.records if r["name"] == name]
+            for name in wrappers}
+    for name, recs in held.items():
+        if len(recs) != fwd_launches[name]:
+            fail(f"{arch}: held {len(recs)} {name} launches of the warm-up "
+                 f"forward, not {fwd_launches[name]}")
+    if tuple(logits.shape) != (Bf, Sf, cfg.padded_vocab):
+        fail(f"{arch}: forward gave logits of shape {tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()):
+        fail(f"{arch}: non-finite logits from the forward")
+    del logits
+    forward_ms = []
+    for _ in range(REGISTRY_FWD_CALLS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            out = model.forward(params, batch, train=False)[0]
+        torch.cuda.synchronize()
+        forward_ms.append((time.perf_counter() - t1) * 1e3)
+        del out
+    p50 = float(np.percentile(forward_ms, 50))
+    report["forward"] = dict(
+        batch=Bf, positions=Sf, launches=fwd_launches,
+        forward_ms={"p50": p50, "p90": float(np.percentile(forward_ms, 90)),
+                    "calls": REGISTRY_FWD_CALLS},
+        tokens_per_s=Bf * Sf / (p50 / 1e3),
+        held={name: held_summary(recs) for name, recs in held.items()})
+    checks, max_err = hold_flash(torch, (q, k, v), prefixes=(RAGGED_S,),
+                                 seeded=False)
+    report["forward"]["kernel_checks"] = checks
+    timing = flash_times(torch, (q, k, v), plain_reps=PREFIX_PLAIN_REPS)
+    timing.update(max_abs_err=max(max_err, report["forward"]["held"][
+        "flash_attention"]["max_abs_err"]), launches=fwd_launches[
+            "flash_attention"], held=report["forward"]["held"]["flash_attention"])
+    timings["flash_attention"] = timing
+    if cfg.moe:
+        for name in gmm_wrappers:
+            timings[name]["forward"] = dict(
+                C=int(fwd_held.first[(name, "forward")][0].shape[1]),
+                launches=fwd_launches[name],
+                held=report["forward"]["held"][name])
+    del fwd_held, q, k, v
+    seconds["forward"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    exact = []
+    fwd_dev = layerwise(torch, cfg, ref_cfg, params, batch["tokens"],
+                        cached=False, exact=exact)[0]
+    tol = REGISTRY_FWD_LAYER_TOL[arch]
+    worst = max(fwd_dev + [e[0] for e in exact])
+    report["forward"]["layerwise_update_rel_dev"] = dict(
+        tolerance=tol, worst=worst, b4_vs_plain=fwd_dev,
+        b4_vs_float32=[e[0] for e in exact],
+        plain_vs_float32=[e[1] for e in exact])
+    if worst > tol:
+        fail(f"{arch}: a layer's update through B4 differs from the plain "
+             f"route's or the float32 layer's by {worst:.3g} of its norm "
+             f"(> {tol})")
+    seconds["layers"] = time.perf_counter() - t0
+    report["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, batch
+    torch.cuda.empty_cache()
+    report["seconds"] = seconds
+    report["phase_s"] = time.perf_counter() - t_start
+    launches = {name: serve_launches[name] + fwd_launches[name]
+                for name in serve_launches}
+    return launches, timings, report
+
+
+def registry_lines(rg: dict, timings: dict, card: str) -> list[str]:
+    """The registry phase's summary lines for one architecture."""
+    sv, fw = rg["serve"], rg["forward"]
+    b4 = timings["flash_attention"]
+    heads = "{} over {} heads of {}".format(*rg["heads"])
+    lines = [
+        f"{rg['arch']} ({card}): {rg['layers']} of {rg['published_layers']} "
+        f"layers (cuts: {', '.join(rg['cuts']) or 'none'}), {heads}, "
+        f"{rg['params']} parameters, {rg['param_bytes_allocated'] / 1e9:.2f} "
+        f"GB allocated, peak {rg['peak_bytes'] / 1e9:.2f} GB of "
+        f"{rg['device_bytes'] / 1e9:.2f} GB; {rg['phase_s']:.1f} s (budget "
+        f"{REGISTRY_BUDGET_S:.0f} s: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in rg["seconds"].items()) + ")",
+        f"{rg['arch']} serve ({card}): {sv['batch']} x {sv['prompt']} prefill "
+        f"{sv['prefill_ms']:.2f} ms, decode p50 / p90 "
+        f"{sv['decode_ms']['p50']:.2f} / {sv['decode_ms']['p90']:.2f} ms "
+        f"(weight-read floor {sv['weight_read_floor_ms']:.2f} ms, "
+        f"{sv['decode_p50_over_floor']:.2f}x), {sv['decode_tokens_per_s']:.1f} "
+        f"tokens/s a step, {sv['tokens_per_s']:.1f} tokens/s served; launches "
+        + ", ".join(f"{k} {v}" for k, v in sv["launches"].items())
+        + f"; layers ({sv['layerwise_update_rel_dev']['gate']}) within "
+        f"{sv['layerwise_update_rel_dev']['worst']:.4g} (limit {LAYER_TOL})",
+        f"{rg['arch']} forward ({card}): {fw['batch']} x {fw['positions']} "
+        f"p50 / p90 {fw['forward_ms']['p50']:.2f} / "
+        f"{fw['forward_ms']['p90']:.2f} ms, {fw['tokens_per_s']:.0f} tokens/s;"
+        " launches " + ", ".join(f"{k} {v}" for k, v in fw["launches"].items())
+        + ", held " + ", ".join(f"{k} {v['held']} (max |d| "
+                                f"{v['max_abs_err']:.3g})"
+                                for k, v in fw["held"].items())
+        + f"; B4 at {tuple(b4['shape'])}, KV {b4['kv_heads']}: "
+        f"{b4['ms']:.4f} ms (bound {b4['bound_ms']:.4f} by {b4['bound_by']}, "
+        f"plain {b4['plain_ms']:.3f}, SDPA {b4['library_ms']:.4f}); layers "
+        f"within {fw['layerwise_update_rel_dev']['worst']:.4g} (limit "
+        f"{fw['layerwise_update_rel_dev']['tolerance']})"]
+    for name in ("moe_gmm", "moe_gmm_down"):
+        if name not in timings:
+            continue
+        for phase, t in timings[name]["shapes"].items():
+            lines.append(
+                f"{rg['arch']} {name} {phase} ({card}): E={t['E']} C={t['C']} "
+                f"K={t['K']} N={t['N']}: {t['ms']:.4f} ms (bound "
+                f"{t['bound_ms']:.4f} by {t['bound_by']}, plain "
+                f"{t['plain_ms']:.3f}"
+                + (f", torch.bmm {t['library_ms']:.4f}" if t["library_ms"]
+                   else f", bmm products {t['products_bmm_ms']:.4f}") + ")")
+    return lines
 
 
 def train_phase(torch, forward_ce: float):
@@ -5775,6 +6194,16 @@ def main() -> None:
     prefix_s = time.perf_counter() - prefix_t0
     print(f"prefix phase: {prefix_s:.1f} s (budget {PREFIX_BUDGET_S:.0f} s)")
 
+    registry_launches, registry_timings = {}, {}
+    for arch in REGISTRY_ARCHS:
+        rg_launches, registry_timings[arch], rg = registry_phase(torch, arch)
+        print(f"{arch}: " + json.dumps({**rg, "kernel_times":
+                                        registry_timings[arch]}))
+        for line in registry_lines(rg, registry_timings[arch], card):
+            print(line)
+        for name, n in rg_launches.items():
+            registry_launches[name] = registry_launches.get(name, 0) + n
+
     t0 = time.perf_counter()
     fwd_launches, fwd_timings, fwd = forward_phase(torch)
     fwd["phase_s"] = time.perf_counter() - t0
@@ -5783,6 +6212,10 @@ def main() -> None:
     launches.update(fwd_launches)
     timings.update(fwd_timings)
     timings["flash_attention"]["prefix_phase"] = prefix_timings
+    for name, n in registry_launches.items():
+        launches[name] += n
+        timings[name]["registry_phase"] = dict(launches=n, **{
+            arch: t[name] for arch, t in registry_timings.items() if name in t})
     t0 = time.perf_counter()
     train = train_phase(torch, fwd["cross_entropy"])
     train["phase_s"] = time.perf_counter() - t0

@@ -988,6 +988,121 @@ def test_flash_attention_kernel_refuses_what_it_does_not_take(cuda):
         tfa.flash_attention(q, q, q, scale=0.125)
 
 
+@pytest.mark.parametrize("S", [77, 1000])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KV", [(20, 20), (40, 8), (64, 8)],
+                         ids=["G1", "G5", "G8"])
+def test_flash_attention_kernel_at_registry_groupings(cuda, H, KV, D, S):
+    """B4 at the head layouts of qwen1.5 (MHA, 20 over 20), llama4 (40 over
+    8, G = 5) and qwen3-32b (64 over 8, G = 8), both head dims, on ragged
+    query lengths (no multiple of the 128-row tile)."""
+    g = torch.Generator(device=cuda).manual_seed(H * S + D)
+    bf = lambda *s: torch.randn(*s, generator=g, device=cuda).to(torch.bfloat16)  # noqa: E731
+    q, k, v = bf(1, S, H, D), bf(1, S, KV, D), bf(1, S, KV, D)
+    before = tfa.flash_attention.launches
+    out = tfa.flash_attention(q, k, v, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert tfa.flash_attention.launches == before + 1
+    plain = tfa.flash_attention(q, k, v, scale=D ** -0.5, backend="torch")
+    far = assert_within_ulp(out, plain)
+    print(f"B4 at {(1, S, H, D)} over {KV} KV heads: {far} of {out.numel()} "
+          "beyond one ulp")
+
+
+@pytest.mark.parametrize("C", [1, 8, 160])
+def test_moe_gmm_kernels_at_llama4_width(cuda, C):
+    """B7 and B8 at llama4-scout's experts (E = 16, D = 5120, F = 8192):
+    one row, decode's capacity of 8 and the served prefill's 160."""
+    E, D, F = 16, 5120, 8192
+    g = torch.Generator(device=cuda).manual_seed(C)
+    bf = lambda *s, k=1.0: (torch.randn(*s, generator=g, device=cuda) * k  # noqa: E731
+                            ).to(torch.bfloat16)
+    x, w1, w3, w2 = bf(E, C, D), bf(E, D, F, k=D ** -0.5), \
+        bf(E, D, F, k=D ** -0.5), bf(E, F, D, k=F ** -0.5)
+    before = (tgmm.moe_gmm.launches, tgmm.moe_gmm_down.launches)
+    h = tgmm.moe_gmm(x, w1, w3)
+    y = tgmm.moe_gmm_down(h, w2)
+    torch.cuda.synchronize()
+    assert (tgmm.moe_gmm.launches, tgmm.moe_gmm_down.launches) == (
+        before[0] + 1, before[1] + 1)
+    far_h = assert_within_ulp(h, tgmm.moe_gmm(x, w1, w3, backend="torch"))
+    far_y = assert_within_ulp(y, tgmm.moe_gmm_down(h, w2, backend="torch"))
+    print(f"B7 / B8 at E={E} C={C} D={D} F={F}: {far_h} / {far_y} beyond one ulp")
+
+
+@pytest.mark.parametrize("arch,heads", [
+    ("qwen3-32b", dict(num_heads=8, num_kv_heads=1, head_dim=128)),
+    ("llama4-scout-17b-a16e", dict(num_heads=10, num_kv_heads=2, head_dim=128)),
+    ("qwen1.5-4b", dict(num_heads=4, num_kv_heads=4, head_dim=128)),
+    ("qwen1.5-0.5b", dict(num_heads=4, num_kv_heads=4, head_dim=64))])
+def test_reduced_registry_archs_on_the_card_match_cpu(cuda, arch, heads):
+    """The reduced qwen3-32b, llama4, qwen1.5-4b and qwen1.5-0.5b at their
+    own head layouts (as ``tests/test_torch_registry_archs.py`` runs them):
+    the forward on the card (B4 in every layer, B7/B8 in llama4's) and a
+    prefill + decode step against the same weights on the CPU, within 5e-2
+    of max|CPU logits|.  llama4 routes each token to one expert: a token
+    the CPU routes at a near-tie (top-1 / top-2 margin below 1e-3) may take
+    the other expert on the card, so its forward row is counted and left
+    out of the bound (at most 2% of the rows)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import get_model
+    from repro_torch.models import moe as tmoe
+    from repro_torch.models.param import tree_map
+    cfg = get_config(arch).reduced(use_pallas=True, **heads)
+    if cfg.moe:        # no capacity drops: a near-tie flip moves no other token
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+    gpu, cpu = get_model(cfg, device=cuda), get_model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gparams = tree_map(lambda t: t.to(cuda), params)
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 200)))
+    tfa.flash_attention.launches = tgmm.moe_gmm.launches = 0
+    with torch.no_grad():
+        lg, _ = gpu.forward(gparams, {"tokens": tokens.to(cuda)}, train=False)
+    assert tfa.flash_attention.launches == cfg.num_layers
+    assert tgmm.moe_gmm.launches == (cfg.num_layers if cfg.moe else 0)
+    margin = torch.full((tokens.numel(),), float("inf"))
+    route = tmoe.route
+
+    def routing(cfg_, p, xt):
+        out = route(cfg_, p, xt)
+        top2 = torch.sort(out[0], dim=-1, descending=True).values[:, :2]
+        torch.minimum(margin, top2[:, 0] - top2[:, 1], out=margin)
+        return out
+
+    tmoe.route = routing
+    try:
+        with torch.no_grad():
+            lc, _ = cpu.forward(params, {"tokens": tokens}, train=False)
+    finally:
+        tmoe.route = route
+    tied = margin < 1e-3
+    rows = ~tied.reshape(tokens.shape)
+    assert float(tied.float().mean()) <= 0.02
+    row_dev = ((lg.float().cpu() - lc.float()).abs().amax(-1)
+               / lc.float().abs().max()).reshape(-1)
+    worst = int(row_dev.argmax())
+    print(f"worst forward row {worst}: {float(row_dev[worst]):.4g} of "
+          f"max|logits|, its smallest router margin {float(margin[worst]):.3g}")
+    devs = [float(row_dev[rows.reshape(-1)].max())]
+    caches = (gpu.init_cache(2, 201), cpu.init_cache(2, 201))
+    outs = [m.prefill(p, {"tokens": t}, c)[0] for m, p, t, c in zip(
+        (gpu, cpu), (gparams, params), (tokens.to(cuda), tokens), caches)]
+    devs.append(float((outs[0].float().cpu() - outs[1].float()).abs().max()
+                      / outs[1].float().abs().max()))
+    tok = outs[1][:, -1].argmax(-1, keepdim=True)
+    outs = [m.decode_step(p, t, c, 200)[0] for m, p, t, c in zip(
+        (gpu, cpu), (gparams, params), (tok.to(cuda), tok), caches)]
+    devs.append(float((outs[0].float().cpu() - outs[1].float()).abs().max()
+                      / outs[1].float().abs().max()))
+    print(f"reduced {arch}, card vs CPU (forward, prefill, decode): "
+          + ", ".join(f"{d:.4g}" for d in devs) + f" of max|logits|; "
+          f"{int(tied.sum())} of {tied.numel()} forward rows routed at a "
+          "near-tie")
+    assert max(devs) <= 5e-2
+
+
 def _reduced_qwen(**over):
     from repro_torch.configs.registry import get_config
     return dataclasses.replace(get_config("qwen2-0.5b").reduced(head_dim=64),
